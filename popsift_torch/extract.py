@@ -1,0 +1,222 @@
+"""Single-image SIFT extraction on one device.
+
+The counterpart of ``popsift_tpu.extract`` + ``popsift_tpu.staged``:
+:func:`make_plan` gives the static per-octave shapes and capacities, and
+:func:`extract_features` runs the stages octave by octave, reading the
+candidate, extremum and orientation counts back to the host between
+stages (shapes are dynamic on the GPU, so there are no compile buckets).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .config import (Config, DescMode, GaussMode, NormMode, ScalingMode,
+                     SiftMode, check_supported)
+from .features import FeaturesHost, assemble_features
+from .gauss import build_gauss_info
+from .kernels.detect import detect
+from .kernels.grad import grad_field
+from .kernels.refine import refine, refine_params
+from .ops import descriptors as ops_desc
+from .ops import extrema as ops_ext
+from .ops import orientation as ops_ori
+from .ops import pyramid as ops_pyr
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtractorPlan:
+    """Static shape/strategy information for one (config, size)."""
+
+    input_w: int
+    input_h: int
+    dims: tuple[tuple[int, int], ...]   # per-octave (w, h)
+    levels: int
+    octaves: int
+    sift_mode: SiftMode
+    gauss_mode: GaussMode
+    scaling_mode: ScalingMode
+    desc_mode: DescMode
+    norm_mode: NormMode
+    upscale_factor: float
+    sigma0: float
+    sigma_k: float
+    peak_threshold: float
+    edge_limit: float
+    norm_multi: int
+    filter_grid_size: int
+    filter_max_extrema: int
+    grid_filter_mode: object
+    cand_caps: tuple[int, ...]
+    ext_caps: tuple[int, ...]
+    ori_caps: tuple[int, ...]
+    ori_win: int
+    desc_win: int
+
+
+def make_plan(config: Config, width: int, height: int) -> ExtractorPlan:
+    """Per-octave dims and capacities (popsift_tpu/extract.py:70-128)."""
+    levels = max(2, config.levels)
+    w, h = config.scaled_dims(width, height)
+    octaves = config.num_octaves_for(width, height)
+    dims = []
+    for _ in range(octaves):
+        dims.append((w, h))
+        w, h = -(-w // 2), -(-h // 2)
+
+    cand_caps, ext_caps, ori_caps = [], [], []
+    for (w, h) in dims:
+        voxels = w * h * levels
+        if config.ext_capacity > 0:
+            ext_cap = config.ext_capacity
+        else:
+            ext_cap = min(config.max_extrema,
+                          max(512, _round_up(voxels // 256, 128)), 16384)
+        cand_cap = min(max(config.max_extrema, 2 * ext_cap),
+                       max(1024, _round_up(voxels // 64, 128)), 65536)
+        if config.ori_capacity > 0:
+            ori_cap = config.ori_capacity
+        else:
+            # max_orientations = 1.25x (sift_constants.cu:31)
+            ori_cap = _round_up(ext_cap + ext_cap // 4, 128)
+        cand_caps.append(cand_cap)
+        ext_caps.append(ext_cap)
+        ori_caps.append(ori_cap)
+
+    return ExtractorPlan(
+        input_w=width, input_h=height, dims=tuple(dims), levels=levels,
+        octaves=octaves, sift_mode=config.sift_mode,
+        gauss_mode=config.gauss_mode, scaling_mode=config.scaling_mode,
+        desc_mode=config.desc_mode, norm_mode=config.norm_mode,
+        upscale_factor=config.upscale_factor, sigma0=config.sigma,
+        sigma_k=2.0 ** (1.0 / levels),
+        peak_threshold=config.get_peak_threshold(),
+        edge_limit=config.edge_limit, norm_multi=config.norm_multiplier,
+        filter_grid_size=config.filter_grid_size,
+        filter_max_extrema=config.filter_max_extrema,
+        grid_filter_mode=config.grid_filter_mode,
+        cand_caps=tuple(cand_caps), ext_caps=tuple(ext_caps),
+        ori_caps=tuple(ori_caps),
+        ori_win=ops_ori.ori_window_size(config.sigma, levels),
+        desc_win=ops_desc.desc_window_size(config.sigma, levels))
+
+
+def normalize_input(image: np.ndarray) -> np.ndarray:
+    """uint8 -> [0,1] f32 (s_image.cu:147); float input passes through."""
+    if image.dtype == np.uint8:
+        return image.astype(np.float32) / 255.0
+    return np.asarray(image, dtype=np.float32)
+
+
+def to_unit_image(image: np.ndarray, device) -> torch.Tensor:
+    """The (H, W) input on ``device`` as f32 in [0, 1]: bytes are uploaded
+    and scaled on the device by 1/255 as the staged extractor does; other
+    input is normalised on the host first (popsift_tpu/pipeline.py:374)."""
+    image = np.ascontiguousarray(image)
+    if image.dtype == np.uint8:
+        t = torch.as_tensor(image).to(device)
+        return t.to(torch.float32) * (1.0 / 255.0)
+    return torch.as_tensor(normalize_input(image)).to(device)
+
+
+def refine_params_for(plan: ExtractorPlan, o: int, n_layers: int):
+    w, h = plan.dims[o]
+    g = plan.filter_grid_size
+    return refine_params(
+        plan.sift_mode, w, h, n_layers, plan.sigma0, plan.sigma_k,
+        plan.peak_threshold, plan.edge_limit, w / g, h / g, g)
+
+
+def octave_keypoints(plan: ExtractorPlan, o: int, dog: torch.Tensor):
+    """Detection -> compaction -> refinement -> compaction of one octave.
+    Returns (Candidates, Extrema)."""
+    mask = detect(dog, plan.sift_mode, plan.peak_threshold)
+    cands = ops_ext.compact_mask(mask, plan.cand_caps[o])
+    refined = refine(dog, cands.x, cands.y, cands.z + 1,
+                     refine_params_for(plan, o, dog.shape[0]))
+    return cands, ops_ext.compact_extrema(*refined, plan.ext_caps[o])
+
+
+def descriptor_rows(plan: ExtractorPlan, o: int, num_ori: torch.Tensor,
+                    orientations: torch.Tensor):
+    """One row per (extremum, orientation) in feature order, clamped at
+    the octave's orientation capacity.  Returns (feature index, angle,
+    num_ori clamped to the rows produced)."""
+    dev = num_ori.device
+    n = num_ori.shape[0]
+    incl = torch.cumsum(num_ori.to(torch.int64), 0)
+    total = int(incl[-1]) if n else 0
+    rows = min(total, plan.ori_caps[o])
+    feat = torch.repeat_interleave(torch.arange(n, device=dev),
+                                   num_ori.to(torch.int64))[:rows]
+    first = incl - num_ori.to(torch.int64)
+    k = torch.arange(rows, device=dev) - first[feat]
+    ang = orientations[feat, k]
+    num_eff = torch.clamp(torch.minimum(num_ori.to(torch.int64),
+                                        rows - first), min=0)
+    return feat, ang, num_eff.to(torch.int32)
+
+
+def quantize_descs(desc: torch.Tensor, mode: str, norm_multi: int):
+    """Rounding of Config.desc_transfer (staged.py:_quantize_descs) and
+    back to float32, as the user receives the descriptors."""
+    if mode == "f32":
+        return desc.cpu().numpy()
+    bound = 2.0 ** norm_multi
+    levels = 65535.0 if mode == "u16" else 255.0
+    q = torch.round(torch.clamp(desc, 0.0, bound) * (levels / bound))
+    dt = np.uint16 if mode == "u16" else np.uint8
+    return q.cpu().numpy().astype(dt).astype(np.float32) * (bound / levels)
+
+
+def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
+                            desc_transfer: str) -> dict:
+    """Everything after the pyramid for octave ``o``; host arrays."""
+    _, ext = octave_keypoints(plan, o, dog)
+    field = grad_field(stack)
+    num_ori, oris = ops_ori.assign_orientations(
+        field, ext.xpos, ext.ypos, ext.lpos, ext.sigma)
+    feat, ang, num_eff = descriptor_rows(plan, o, num_ori, oris)
+    desc = ops_desc.loop_descriptors(
+        field, ext.xpos[feat], ext.ypos[feat], ext.lpos[feat],
+        ext.sigma[feat], ang, plan.desc_win)
+    if plan.norm_mode == NormMode.ROOT_SIFT:
+        desc = ops_desc.normalize_rootsift(desc, plan.norm_multi)
+    else:
+        desc = ops_desc.normalize_l2(desc, plan.norm_multi)
+    return dict(x=ext.xpos.cpu().numpy(), y=ext.ypos.cpu().numpy(),
+                sigma=ext.sigma.cpu().numpy(), num_ori=num_eff.cpu().numpy(),
+                orientations=oris.cpu().numpy(),
+                desc=quantize_descs(desc, desc_transfer, plan.norm_multi),
+                overflow=ext.overflow)
+
+
+def extract_features(image, config: Config,
+                     device="cuda") -> FeaturesHost:
+    """Extract the features of one (H, W) uint8 or [0,1] float image."""
+    check_supported(config)
+    h, w = np.shape(image)
+    plan = make_plan(config, w, h)
+    gauss = build_gauss_info(config)
+    img = to_unit_image(image, device)
+    octaves = []
+    src = img
+    for o in range(plan.octaves):
+        stack, dog = ops_pyr.build_octave(src, o, plan.dims, plan.levels,
+                                          gauss, plan.sift_mode,
+                                          plan.upscale_factor)
+        octaves.append(extract_octave_features(plan, o, stack, dog,
+                                               config.desc_transfer))
+        src = stack
+    return assemble_features(octaves, plan.upscale_factor)
+
+
+__all__ = ["ExtractorPlan", "make_plan", "normalize_input",
+           "extract_features"]

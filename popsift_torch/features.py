@@ -1,0 +1,188 @@
+"""User-facing feature containers (popsift_tpu/features.py).
+
+:class:`FeaturesHost` keeps numpy structure-of-arrays features and the
+descriptor matrix, with the STL-style iteration and the ``print`` text
+format of the reference (features.cu:310-330).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Iterator
+
+import numpy as np
+
+from .constants import ORIENTATION_MAX_COUNT
+
+
+@dataclasses.dataclass
+class Feature:
+    """One keypoint (features.h:23-37)."""
+
+    xpos: float
+    ypos: float
+    sigma: float
+    num_ori: int
+    orientation: np.ndarray        # (ORIENTATION_MAX_COUNT,)
+    desc_idx: np.ndarray           # indices into the descriptors (-1 pad)
+    debug_octave: int
+    _descriptors: np.ndarray | None = None  # (num_desc, 128)
+
+    @property
+    def desc(self) -> list[np.ndarray | None]:
+        return [self._descriptors[int(i)] if int(i) >= 0 else None
+                for i in self.desc_idx[:ORIENTATION_MAX_COUNT]]
+
+    def print(self, ostr, write_as_uchar: bool = False) -> None:
+        """Text output format of Feature::print (features.cu:310-330)."""
+        sigval = 1.0 / (self.sigma * self.sigma)
+        for ori in range(self.num_ori):
+            d = self._descriptors[int(self.desc_idx[ori])]
+            ostr.write(f"{_g(self.xpos)} {_g(self.ypos)} "
+                       f"{_g(sigval)} 0 {_g(sigval)} ")
+            if write_as_uchar:
+                # roundf = half away from zero (features.cu:318), not
+                # Python's round-half-to-even
+                ostr.write(" ".join(
+                    str(int(math.copysign(math.floor(abs(float(v)) + 0.5),
+                                          float(v)))) for v in d))
+            else:
+                ostr.write(" ".join(_g3(float(v)) for v in d))
+            ostr.write(" \n")
+
+
+def _g(v: float) -> str:
+    """C++ ostream default float formatting (6 significant digits)."""
+    return f"{v:.6g}"
+
+
+def _g3(v: float) -> str:
+    """setprecision(3) used for descriptor values (features.cu:322)."""
+    return f"{v:.3g}"
+
+
+class FeaturesBase:
+    """features.h:41-56."""
+
+    def __init__(self) -> None:
+        self._num_ext = 0
+        self._num_ori = 0
+
+    def get_feature_count(self) -> int:
+        return self._num_ext
+
+    def get_descriptor_count(self) -> int:
+        return self._num_ori
+
+
+class FeaturesHost(FeaturesBase):
+    """Host-side features: numpy SoA + iteration (features.h:69-104)."""
+
+    _EMPTY = dict(
+        xpos=((0,), np.float32), ypos=((0,), np.float32),
+        sigma=((0,), np.float32), num_ori=((0,), np.int32),
+        orientation=((0, ORIENTATION_MAX_COUNT), np.float32),
+        desc_idx=((0, ORIENTATION_MAX_COUNT), np.int64),
+        debug_octave=((0,), np.int32))
+
+    def __init__(self, features: list[Feature] | None = None,
+                 descriptors: np.ndarray | None = None,
+                 soa: dict | None = None) -> None:
+        super().__init__()
+        self._descriptors = (descriptors if descriptors is not None
+                             else np.zeros((0, 128), np.float32))
+        self._num_ori = int(self._descriptors.shape[0])
+        if soa is None:
+            soa = {k: np.zeros(shape, dt)
+                   for k, (shape, dt) in self._EMPTY.items()}
+            if features:
+                soa = {k: np.stack([np.asarray(getattr(f, k), dt)
+                                    for f in features])
+                       for k, (_, dt) in self._EMPTY.items()}
+        self._soa = soa
+        self._num_ext = int(self._soa["xpos"].shape[0])
+
+    def get_features(self) -> list[Feature]:
+        return [self[i] for i in range(self._num_ext)]
+
+    def get_descriptors(self) -> np.ndarray:
+        return self._descriptors
+
+    def soa(self) -> dict:
+        """The feature arrays by name (xpos, ypos, sigma, num_ori,
+        orientation, desc_idx, debug_octave)."""
+        return self._soa
+
+    def size(self) -> int:
+        return self._num_ext
+
+    def __len__(self) -> int:
+        return self._num_ext
+
+    def __iter__(self) -> Iterator[Feature]:
+        for i in range(self._num_ext):
+            yield self[i]
+
+    def __getitem__(self, i: int) -> Feature:
+        s = self._soa
+        return Feature(
+            xpos=float(s["xpos"][i]), ypos=float(s["ypos"][i]),
+            sigma=float(s["sigma"][i]), num_ori=int(s["num_ori"][i]),
+            orientation=s["orientation"][i], desc_idx=s["desc_idx"][i],
+            debug_octave=int(s["debug_octave"][i]),
+            _descriptors=self._descriptors)
+
+    def print(self, ostr, write_as_uchar: bool = False) -> None:
+        for f in self:
+            f.print(ostr, write_as_uchar)
+
+    def pin(self) -> None:
+        """FeaturesHost::pin (features.cu:86-105); the arrays are host
+        numpy arrays already, so this does nothing."""
+
+    def unpin(self) -> None:
+        """FeaturesHost::unpin (features.cu:107-111)."""
+
+
+Features = FeaturesHost
+
+
+def assemble_features(octaves: list[dict],
+                      upscale_factor: float) -> FeaturesHost:
+    """Host features from per-octave results (prep_features,
+    sift_pyramid.cu:250-280): coordinates and sigma scaled by
+    2^(octave - upscale), octaves in ascending order, descriptor rows in
+    feature order.
+
+    Each ``octaves[o]`` holds numpy arrays ``x, y, sigma`` (count,),
+    ``num_ori`` (count,) already clamped to the descriptor rows the octave
+    produced, ``orientations`` (count, 4) and ``desc`` (rows, 128)."""
+    parts = {k: [] for k in FeaturesHost._EMPTY}
+    descs = []
+    base = 0
+    kk = np.arange(ORIENTATION_MAX_COUNT, dtype=np.int64)[None, :]
+    for o, od in enumerate(octaves):
+        descs.append(od["desc"])
+        n = od["x"].shape[0]
+        if n:
+            scale = np.float32(2.0 ** (o - upscale_factor))
+            num = od["num_ori"].astype(np.int32)
+            idx0 = base + np.cumsum(num, dtype=np.int64) - num
+            keep = kk < num[:, None]
+            parts["xpos"].append(od["x"] * scale)
+            parts["ypos"].append(od["y"] * scale)
+            parts["sigma"].append(od["sigma"] * scale)
+            parts["num_ori"].append(num)
+            parts["orientation"].append(
+                np.where(keep, od["orientations"], np.float32(0.0))
+                .astype(np.float32))
+            parts["desc_idx"].append(np.where(keep, idx0[:, None] + kk, -1))
+            parts["debug_octave"].append(np.full(n, o, np.int32))
+        base += od["desc"].shape[0]
+    soa = {k: (np.concatenate(v, axis=0) if v
+               else np.zeros(*FeaturesHost._EMPTY[k]))
+           for k, v in parts.items()}
+    descriptors = (np.concatenate(descs, axis=0) if descs
+                   else np.zeros((0, 128), np.float32))
+    return FeaturesHost(descriptors=descriptors, soa=soa)

@@ -1,0 +1,183 @@
+"""Build, load and call the CUDA kernel library.
+
+The kernels live in ``popsift_torch/csrc/*.cu`` behind a plain C
+interface.  At first use on a CUDA device they are compiled for Hopper
+(``sm_90a``), one ``nvcc`` process per source started together, linked
+into one shared library under ``build/popsift_torch/`` and loaded with
+``ctypes``.  The library's file name carries a hash of the sources and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+
+Each wrapper counts its own launches here (:func:`count`); a run resets
+the counts with :func:`reset_launches` and reads them with
+:func:`launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "popsift_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
+
+KERNELS = ("sep_blur", "grad_field", "detect", "refine", "ori_hist",
+           "desc_loop")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "psk_sep_blur": [_P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _F, _P],
+    "psk_grad_field": [_P, _P, _I, _I, _I, _P],
+    "psk_detect": [_P, _P, _I, _I, _I, _F, _I, _P],
+    "psk_refine": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                   _F, _F, _F, _I, _P, _P, _P, _P, _P, _P, _P],
+    "psk_ori_hist": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "psk_desc_loop": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_launches = dict.fromkeys(KERNELS, 0)
+build_info: dict = {}
+
+
+def count(name: str) -> None:
+    with _lock:
+        _launches[name] += 1
+
+
+def launches() -> dict:
+    with _lock:
+        return dict(_launches)
+
+
+def reset_launches() -> None:
+    with _lock:
+        for k in _launches:
+            _launches[k] = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                       "build popsift_torch's kernels")
+
+
+def _build(target: Path) -> None:
+    nvcc = _nvcc()
+    obj_dir = target.parent / (target.stem + ".obj")
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for src in _sources():
+        obj = obj_dir / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    failed = []
+    for src, _obj, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name} (rc={proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    (target.parent / (target.stem + ".log")).write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    tmp = target.with_suffix(f".tmp{os.getpid()}")
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+            *[str(obj) for _s, obj, _p in procs]]
+    res = subprocess.run(link, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
+    os.replace(tmp, target)
+    build_info["build_seconds"] = time.perf_counter() - t0
+    build_info["log"] = "\n".join(log)
+
+
+def _check_device(device: torch.device) -> None:
+    cap = torch.cuda.get_device_capability(device)
+    if tuple(cap) != (9, 0):
+        raise RuntimeError(
+            f"popsift_torch's kernels are built for compute capability 9.0 "
+            f"(Hopper, sm_90a); {torch.cuda.get_device_name(device)} has "
+            f"{cap[0]}.{cap[1]}")
+
+
+def library(device: torch.device) -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _check_device(device)
+            target = BUILD_DIR / f"libpopsift_torch_{_digest()}.so"
+            if target.exists():
+                build_info.setdefault("build_seconds", 0.0)
+            else:
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                _build(target)
+            lib = ctypes.CDLL(str(target))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.psk_error_string.argtypes = [ctypes.c_int]
+            lib.psk_error_string.restype = ctypes.c_char_p
+            build_info["path"] = str(target)
+            _lib = lib
+        return _lib
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def call(name: str, device: torch.device, *args) -> None:
+    """Launch C entry ``psk_<name>`` and raise on a CUDA error."""
+    lib = library(device)
+    rc = getattr(lib, "psk_" + name)(*args, stream(device))
+    if rc != 0:
+        msg = lib.psk_error_string(rc).decode()
+        raise RuntimeError(f"popsift_torch kernel {name}: CUDA error "
+                           f"{rc} ({msg})")
+    count(name)
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    """Common input checks of a kernel wrapper; returns the device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    return dev
