@@ -10,19 +10,24 @@ JAX nor popsift_tpu.  In order it:
    builds the kernel library from popsift_torch/csrc (printing the build
    time and what ptxas reports per kernel);
 2. checks every kernel against its plain PyTorch version on the card, on
-   the inputs the main path gives it for a 1080p scene: the octave-0
-   levels, DoG and stack for the blur, gradient and detection kernels, and
-   the real candidates and keypoint slots of the scene's busiest octave for
-   refinement, orientation and descriptors; it times both with CUDA events
+   the inputs the main paths give it for a 1080p scene: the octave-0
+   levels, DoG and stack for the blur, octave-chain (both emit modes, and
+   against the per-level kernels), gradient and detection kernels, and
+   the real candidates and keypoint rows of the scene's busiest octave for
+   refinement, orientation, loop descriptors, the window gather (both call
+   shapes) and the NoTile descriptors; it times both with CUDA events
    (median of repeated calls) beside the kernel's bound;
-3. drives the main path, PopSift(Config()).enqueue(...).get(), on four
+3. drives the default path, PopSift(Config()).enqueue(...).get(), on four
    distinct 1080p scenes with the launch counts reset just before, fails
-   if any kernel was not launched, and checks that a repeated frame gives
-   bit-identical features; it times five such passes (median and range)
-   and profiles one more for the device's busy and idle share;
-4. holds the card's features of a small scene against the plain PyTorch
-   versions run on the CPU;
-5. prints the kernel table as one JSON line and, last, the device line.
+   if a kernel of that path was not launched or the features per image
+   moved from their recorded counts, and checks that a repeated frame
+   gives bit-identical features; it times five such passes (median and
+   range) and profiles one more for the device's busy and idle share;
+4. drives the NoTile path, PopSift(Config(desc_mode=notile)), the same
+   way, and checks that its keypoints are the default path's;
+5. holds the card's features of a small scene against the plain PyTorch
+   versions run on the CPU, for both paths;
+6. prints the kernel table as one JSON line and, last, the device line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -53,6 +58,18 @@ OPS_DETECT = 56               # 26 max, 26 min, 2 compares, abs, gate
 OPS_REFINE_ITER = 110         # derivatives, 3x3 solve, step rule
 OPS_ORI_PIXEL = 16            # distance, exp weight, bin
 OPS_DESC_PIXEL = 100          # rotation, exp weight, angle, 16 tiles x 2 bins
+OPS_GRID_SAMPLE = 70          # rotation, 4 bilinear taps, hypot, atan2, bins
+OPS_GRID_TILES = 2 * 16 * (40 * 32 + 128)   # the two tile contractions
+
+# Features per image of the default path on the four 1080p scenes (seeds
+# 0-3), as the per-level pyramid gave them; the fused chain is bit-equal
+# to it, so they must not move.
+DEFAULT_FEATURES = (2301, 2474, 2423, 2499)
+# The kernels each path launches (the others are not on it).
+LOOP_PATH = ("sep_blur", "octave_chain", "grad_field", "detect", "refine",
+             "ori_hist", "desc_loop")
+NOTILE_PATH = ("sep_blur", "octave_chain", "grad_field", "detect", "refine",
+               "ori_hist", "gather_windows", "desc_grid")
 
 
 def make_scene(seed: int, h: int, w: int) -> np.ndarray:
@@ -153,13 +170,22 @@ class Table:
                      "popsift_tpu/kernels/binwin.py:180"),
         "desc_loop": ("popsift_torch/csrc/binwin.cu",
                       "popsift_tpu/kernels/binwin.py:334"),
+        "octave_chain": ("popsift_torch/csrc/octave.cu",
+                         "popsift_tpu/kernels/octave.py:282"),
+        "gather_windows": ("popsift_torch/csrc/windows.cu",
+                           "popsift_tpu/kernels/windows2.py:76"),
+        "desc_grid": ("popsift_torch/csrc/desc_grid.cu",
+                      "popsift_tpu/ops/descriptors.py:529"),
     }
 
     def __init__(self):
         self.rows = {}
+        self.subs = {}
 
     def add(self, name, label, err, ms, plain_ms, nbytes, nops,
-            library_ms=None):
+            library_ms=None, sub=None):
+        """One kernel's row; ``sub`` names a second call shape, kept inside
+        the row of ``name`` (added before it) under that key."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
@@ -169,15 +195,23 @@ class Table:
               f"plain_ms={plain_ms:.6f} bound_ms={bound:.6f} ({by}: "
               f"{nbytes:.0f} B, {nops:.0f} ops) library_ms={lib}",
               flush=True)
+        if sub is not None:
+            self.subs.setdefault(name, {})[sub] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=library_ms)
+            return
         src, rep = self.SOURCES[name]
         self.rows[name] = dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=library_ms)
+            bound_ms=bound, bound_by=by, library_ms=library_ms,
+            **self.subs.get(name, {}))
 
 
-def check_kernels(torch, pt, scene: np.ndarray, table: Table) -> None:
-    """Phase 2: each kernel against its plain version at octave 0."""
+def check_kernels(torch, pt, scene: np.ndarray, table: Table,
+                  dev) -> None:
+    """Phase 2: each kernel against its plain version, at octave 0 (K1-K3,
+    K7) or at the scene's busiest octave (K4-K6, K8, K9)."""
     from popsift_torch import extract as ext
     from popsift_torch.gauss import build_gauss_info
     from popsift_torch.kernels import binwin, blur, detect, grad, refine
@@ -185,7 +219,6 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table) -> None:
     from popsift_torch.ops import orientation as ops_ori
     from popsift_torch.ops import pyramid as ops_pyr
 
-    dev = torch.device("cuda")
     cfg = pt.Config()
     h_in, w_in = scene.shape
     plan = ext.make_plan(cfg, w_in, h_in)
@@ -210,8 +243,7 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table) -> None:
                   reps=10)
     table.add("sep_blur", f"K1 sep_blur level 0, spans {sh}/{sv}, x255",
               max_abs(k, p), ms, pms, 8 * px,
-              OPS_BLUR_PER_TAP * (sh + sv) * px)
-    blur_level0 = table.rows.pop("sep_blur")
+              OPS_BLUR_PER_TAP * (sh + sv) * px, sub="level0")
 
     stack, dog = ops_pyr.build_octave(img, 0, plan.dims, plan.levels, gauss,
                                       plan.sift_mode, plan.upscale_factor)
@@ -241,9 +273,8 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table) -> None:
     table.add("sep_blur", f"K1 sep_blur span {span} + DoG",
               max(max_abs(k, p), max_abs(kd, pd)), ms, pms, 12 * px,
               (OPS_BLUR_PER_TAP * 2 * span + 1) * px, library_ms=lib_ms)
-    table.rows["sep_blur"]["level0"] = {
-        key: blur_level0[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms")}
+
+    check_chain(torch, plan, gauss, stack, dog, table)
 
     # K2
     f = grad.grad_field(stack)
@@ -376,7 +407,128 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table) -> None:
                              h, w)
     table.add("desc_loop", f"K6 desc_loop {nd} rows", max_abs(dk, dp), ms,
               pms, 8 * union + 20 * nd + 512 * nd, OPS_DESC_PIXEL * box)
+
+    check_windows_and_grid(torch, plan, stack, args6[1:6], table)
     torch.cuda.synchronize()
+
+
+def check_chain(torch, plan, gauss, stack, dog, table: Table) -> None:
+    """K7 on octave 0 in both emit modes, against K1 per level plus K2
+    (``stack`` and ``dog`` were built by K1 from the same level 0)."""
+    from popsift_torch.kernels import grad, octave
+    from popsift_torch.ops import pyramid as ops_pyr
+
+    L, h, w = stack.shape
+    px = h * w
+    lvl0 = stack[0]
+    filters, spans = ops_pyr.chain_filters(gauss, plan.levels)
+    keep = (L - ops_pyr.PREV_LEVEL,)
+    field = grad.grad_field(stack)
+    blur_ops = sum(OPS_BLUR_PER_TAP * 2 * s + 1 for s in spans[1:]) * px
+    for emit_stack in (True, False):
+        out = octave.octave_chain(lvl0, filters, spans, emit_stack, keep)
+        ks, kd, kf = out
+        ref_stack = stack if emit_stack else stack[list(keep)]
+        form = "full stack" if emit_stack else f"level {keep[0]} only"
+        require(torch.equal(ks, ref_stack) and torch.equal(kd, dog),
+                f"K7 ({form}): levels or DoG differ from K1 per level")
+        require(torch.equal(kf[0::2], field[0::2]),
+                f"K7 ({form}): mag differs from K2")
+        th_ulps = ulps(kf[1::2], field[1::2])
+        print(f"  K7 ({form}): levels, DoG and mag bit-equal to K1 per level "
+              f"plus K2; theta {th_ulps} ulp", flush=True)
+        require(th_ulps == 0, f"K7 theta differs from K2 by {th_ulps} ulp")
+        ps, pd, pf = octave.octave_chain_plain(lvl0, filters, spans,
+                                               emit_stack, keep)
+        err = max(max_abs(ks, ps), max_abs(kd, pd), max_abs(kf, pf))
+        p_ulps = ulps(kf[1::2], pf[1::2])
+        require(torch.equal(ks, ps) and torch.equal(kd, pd)
+                and torch.equal(kf[0::2], pf[0::2]) and p_ulps <= 2,
+                f"K7 ({form}) differs from its plain version")
+        ms = cuda_ms(lambda: octave.octave_chain(lvl0, filters, spans,
+                                                 emit_stack, keep))
+        pms = cuda_ms(lambda: octave.octave_chain_plain(
+            lvl0, filters, spans, emit_stack, keep), reps=10)
+        n_out = ks.shape[0] + (L - 1) + 2 * L
+        table.add("octave_chain", f"K7 octave_chain ({form}, {h}x{w}, spans "
+                  f"{spans[1:]}), plain theta {p_ulps} ulp", err, ms, pms,
+                  4 * px * (1 + n_out), blur_ops + OPS_GRAD * L * px,
+                  sub="full_stack" if emit_stack else None)
+
+    def per_level():
+        st, _ = ops_pyr.per_level_chain(lvl0, plan.levels, gauss)
+        grad.grad_field(st)
+    print(f"  (K1 per level plus K2 on the same level 0: "
+          f"{cuda_ms(per_level, reps=10):.6f} ms)", flush=True)
+
+
+def check_windows_and_grid(torch, plan, stack, rows, table: Table) -> None:
+    """K8 in both call shapes and K9 on the descriptor rows of one octave,
+    as the NoTile path gives them."""
+    from popsift_torch.constants import desc_tables_on
+    from popsift_torch.kernels import desc_grid, windows
+
+    xs, ys, lps, sg, an = rows
+    L, h, w = stack.shape
+    win = plan.desc_win
+    n = int(xs.shape[0])
+    lps = lps.clamp(0, L - 1)
+    x0 = torch.round(xs).to(torch.int32) - win // 2
+    y0 = torch.round(ys).to(torch.int32) - win // 2
+
+    def union(ya, xa, wy, wx):
+        return box_union_pixels(
+            lps, xa.clamp(0, w - 1), (xa + wx - 1).clamp(0, w - 1),
+            ya.clamp(0, h - 1), (ya + wy - 1).clamp(0, h - 1), L, h, w)
+
+    wk, ya = windows.gather_windows_exact(stack, lps, y0, x0, win)
+    aw, aya, axa = windows.gather_windows_aligned(stack, lps, y0, x0, win)
+    shapes = (("aligned", aya, axa, windows.aligned_window_dims(win), aw),
+              (None, ya, x0, windows.rolled_window_dims(win), wk))
+    for sub, oy, ox, (wy, wx), k in shapes:
+        p = windows.gather_windows_plain(stack, lps, oy, ox, wy, wx)
+        form = sub or "exact"
+        require(torch.equal(k, p), f"K8 ({form}): kernel != plain")
+        ms = cuda_ms(lambda: windows.gather_windows(stack, lps, oy, ox, wy,
+                                                    wx))
+        pms = cuda_ms(lambda: windows.gather_windows_plain(
+            stack, lps, oy, ox, wy, wx), reps=10)
+        # the library yardstick: one advanced-indexing call, its index
+        # tensors built outside the timed region
+        li = lps.long()[:, None, None]
+        yi = (oy.long()[:, None] + torch.arange(wy, device=stack.device)
+              ).clamp(0, h - 1)[:, :, None]
+        xi = (ox.long()[:, None] + torch.arange(wx, device=stack.device)
+              ).clamp(0, w - 1)[:, None, :]
+        require(torch.equal(stack[li, yi, xi], k),
+                f"K8 ({form}): advanced indexing differs")
+        lib_ms = cuda_ms(lambda: stack[li, yi, xi])
+        table.add("gather_windows", f"K8 gather_windows ({form}) {n} x "
+                  f"({wy},{wx})", max_abs(k, p), ms, pms,
+                  4 * union(oy, ox, wy, wx) + 4 * n * wy * wx + 12 * n, 0,
+                  library_ms=lib_ms, sub=sub)
+
+    gauss_t, tile_t = desc_tables_on(stack.device)
+    args9 = (wk, xs, ys, x0.to(torch.float32), ya.to(torch.float32), sg, an,
+             w, h, gauss_t, tile_t)
+    dk = desc_grid.desc_grid(*args9)
+    dk2 = desc_grid.desc_grid(*args9)
+    dp = desc_grid.desc_grid_plain(*args9)
+    require(torch.equal(dk, dk2), "K9 is not deterministic")
+    # the plain version's tile contractions are cuBLAS products, summed in
+    # another order than the kernel's fixed loops
+    scale = float(dp.abs().max())
+    require(torch.allclose(dk, dp, rtol=0, atol=1e-5 * scale),
+            f"K9 descriptors differ by {max_abs(dk, dp):.3g} "
+            f"(largest entry {scale:.3g})")
+    print(f"  K9: bit-identical run to run; within {max_abs(dk, dp):.3g} of "
+          f"its plain version (largest entry {scale:.3g})", flush=True)
+    ms = cuda_ms(lambda: desc_grid.desc_grid(*args9))
+    pms = cuda_ms(lambda: desc_grid.desc_grid_plain(*args9), reps=10)
+    wy = wk.shape[1]
+    table.add("desc_grid", f"K9 desc_grid {n} rows", max_abs(dk, dp), ms,
+              pms, 4 * n * wy * 128 + 4 * 7 * n + 4 * (1600 + 16)
+              + 512 * n, n * (1600 * OPS_GRID_SAMPLE + OPS_GRID_TILES))
 
 
 def features_equal(a, b) -> bool:
@@ -403,15 +555,18 @@ def check_output(feats, w: int, h: int) -> None:
 MAIN_PATH_PASSES = 5
 
 
-def run_main_path(torch, pt, scenes, table: Table) -> dict:
-    """Phase 3: the user-facing entry point on the card.  The scenes go
-    through MAIN_PATH_PASSES times; the launch counts are those of the
-    first pass, and ms per image is the median pass, with the range."""
+def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
+             device="cuda") -> tuple[dict, list]:
+    """Phases 3 and 4: the user-facing entry point on the card with
+    ``cfg``.  The scenes go through MAIN_PATH_PASSES times; the launch
+    counts are those of the first pass, and ms per image is the median
+    pass, with the range.  Every kernel of ``path_kernels`` must have been
+    launched.  Returns the path's numbers and the first pass's features."""
     from popsift_torch import kernels
 
     h, w = scenes[0].shape
-    print(f"phase 3: PopSift(Config()) on {len(scenes)} distinct "
-          f"{w}x{h} scenes, {MAIN_PATH_PASSES} passes", flush=True)
+    print(f"{label} on {len(scenes)} distinct {w}x{h} scenes, "
+          f"{MAIN_PATH_PASSES} passes", flush=True)
 
     def one_pass(ps):
         t0 = time.perf_counter()
@@ -420,7 +575,8 @@ def run_main_path(torch, pt, scenes, table: Table) -> dict:
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) / len(scenes) * 1e3
 
-    with pt.PopSift(pt.Config()) as ps:
+    torch.cuda.reset_peak_memory_stats()
+    with pt.PopSift(cfg, device=device) as ps:
         ps.enqueue(w, h, scenes[-1]).get()        # first-use set-up
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -438,15 +594,15 @@ def run_main_path(torch, pt, scenes, table: Table) -> dict:
           + f"), {1e3 / ms_img:.3f} images/s (host clock, {len(scenes)} "
           f"images per pass)", flush=True)
     print(f"  launches: {json.dumps(counts)}", flush=True)
-    for name, c in counts.items():
-        require(c > 0, f"kernel {name} was not launched on the main path")
-        table.rows[name]["launches"] = c
+    for name in path_kernels:
+        require(counts[name] > 0,
+                f"kernel {name} was not launched on the {label} path")
     for f in feats:
         check_output(f, w, h)
     require(features_equal(feats[0], again),
             "the same frame gave different features")
     print("  repeated frame: bit-identical features", flush=True)
-    prof = profile_main_path(torch, pt, scenes)
+    prof = profile_path(torch, pt, scenes, cfg, device)
     if prof["device_busy_ms"] is not None:
         # busy time is the same with the profiler off; the unprofiled
         # wall is the median pass above
@@ -456,22 +612,23 @@ def run_main_path(torch, pt, scenes, table: Table) -> dict:
               f"% under the profiler)", flush=True)
     return dict(ms_per_image=ms_img, pass_ms_per_image=pass_ms,
                 counts=counts,
+                features=[f.get_feature_count() for f in feats],
+                descriptors=[f.get_descriptor_count() for f in feats],
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                **prof)
+                **prof), feats
 
 
-def profile_main_path(torch, pt, scenes) -> dict:
-    """Where the main path's time goes: torch.profiler over the same
-    scenes, device time summed by kernel name, and the device's busy
-    share of the wall time (kernels and copies; one stream, so they do
-    not overlap)."""
+def profile_path(torch, pt, scenes, cfg, device) -> dict:
+    """Where a path's time goes: torch.profiler over the same scenes,
+    device time summed by kernel name, and the device's busy share of the
+    wall time (kernels and copies; one stream, so they do not overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
     h, w = scenes[0].shape
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    with pt.PopSift(pt.Config()) as ps:
+    with pt.PopSift(cfg, device=device) as ps:
         ps.enqueue(w, h, scenes[-1]).get()
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
@@ -502,17 +659,25 @@ def profile_main_path(torch, pt, scenes) -> dict:
                 device_idle_share_profiled=1.0 - busy / wall_ms)
 
 
-def check_against_cpu(torch, pt) -> None:
-    """Phase 4: the card's features of a small scene against the plain
+def same_keypoints(a, b) -> bool:
+    sa, sb = a.soa(), b.soa()
+    return all(np.array_equal(sa[k], sb[k])
+               for k in ("xpos", "ypos", "sigma", "num_ori", "orientation",
+                         "debug_octave"))
+
+
+def check_against_cpu(torch, pt, cfg, label: str) -> None:
+    """Phase 5: the card's features of a small scene against the plain
     versions on the CPU.  Both sides round each operation the same way,
     but exp/sin/cos/atan2/pow come from different maths libraries, so a
     feature may move by a few ulp; 99% of the CPU features must be found
-    on the card at the same octave within 1e-3 px and sigma rtol 1e-4."""
+    on the card at the same octave within 1e-3 px and sigma rtol 1e-4, and
+    99% of those found must have their first descriptor within 1e-3."""
     from popsift_torch.extract import extract_features
 
     scene = make_scene(11, 240, 320)
-    cpu = extract_features(scene, pt.Config(), device="cpu")
-    gpu = extract_features(scene, pt.Config(), device="cuda")
+    cpu = extract_features(scene, cfg, device="cpu")
+    gpu = extract_features(scene, cfg, device="cuda")
     check_output(gpu, 320, 240)
     sc, sg = cpu.soa(), gpu.soa()
     nc, ng = cpu.get_feature_count(), gpu.get_feature_count()
@@ -523,10 +688,19 @@ def check_against_cpu(torch, pt) -> None:
     j = d.argmin(axis=1)
     hit = (d[np.arange(nc), j] <= 1e-3) & (
         np.abs(sg["sigma"][j] - sc["sigma"]) <= 1e-4 * sc["sigma"])
-    print(f"phase 4: 320x240 scene, {nc} CPU / {ng} GPU features, "
-          f"{int(hit.sum())} matched", flush=True)
+    ic, ig = sc["desc_idx"][hit, 0], sg["desc_idx"][j[hit], 0]
+    both = (ic >= 0) & (ig >= 0)
+    ddiff = np.abs(cpu.get_descriptors()[ic[both]]
+                   - gpu.get_descriptors()[ig[both]]).max(axis=1)
+    require(ddiff.size > 0, f"no matched descriptors ({label})")
+    print(f"phase 5 ({label}): 320x240 scene, {nc} CPU / {ng} GPU features, "
+          f"{int(hit.sum())} matched; first descriptors of matched features "
+          f"within {float(np.median(ddiff)):.3g} (median), "
+          f"{float(ddiff.max()):.3g} (largest)", flush=True)
     require(abs(nc - ng) <= max(1, nc // 100) and hit.mean() >= 0.99,
-            "card and CPU features disagree")
+            f"card and CPU features disagree ({label})")
+    require(float((ddiff <= 1e-3).mean()) >= 0.99,
+            f"card and CPU descriptors disagree ({label})")
 
 
 def main() -> int:
@@ -565,11 +739,39 @@ def main() -> int:
     print(f"  4 scenes made in {time.perf_counter() - t_scene:.1f} s",
           flush=True)
     table = Table()
-    check_kernels(torch, pt, scenes[0], table)
-    main_stats = run_main_path(torch, pt, scenes, table)
-    check_against_cpu(torch, pt)
+    check_kernels(torch, pt, scenes[0], table, torch.device("cuda"))
 
-    print(json.dumps({"main_path": main_stats}), flush=True)
+    print("phase 3: the default path, ", end="")
+    loop_stats, loop_feats = run_path(torch, pt, scenes, pt.Config(),
+                                      "PopSift(Config())", LOOP_PATH)
+    got = tuple(loop_stats["features"])
+    require(got == DEFAULT_FEATURES, f"features per image {got}, recorded "
+            f"{DEFAULT_FEATURES}")
+    print(f"  features per image as recorded: {got}", flush=True)
+
+    notile = pt.Config()
+    notile.set_desc_mode(pt.DescMode.NOTILE)
+    print("phase 4: the NoTile path, ", end="")
+    grid_stats, grid_feats = run_path(
+        torch, pt, scenes, notile, "PopSift(Config(desc_mode=notile))",
+        NOTILE_PATH)
+    require(all(same_keypoints(a, b) for a, b in zip(loop_feats,
+                                                     grid_feats)),
+            "the NoTile path's keypoints differ from the default path's")
+    print("  keypoints (x, y, sigma, num_ori, orientations) identical to "
+          "the default path's on every scene", flush=True)
+    for name in table.rows:
+        by_path = {"loop": loop_stats["counts"][name],
+                   "notile": grid_stats["counts"][name]}
+        table.rows[name]["launches"] = (by_path["loop"] if name in LOOP_PATH
+                                        else by_path["notile"])
+        table.rows[name]["launches_by_path"] = by_path
+
+    check_against_cpu(torch, pt, pt.Config(), "default")
+    check_against_cpu(torch, pt, notile, "notile")
+
+    print(json.dumps({"default_path": loop_stats, "notile_path": grid_stats}),
+          flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": [table.rows[k] for k in _lib.KERNELS]}),
           flush=True)

@@ -54,8 +54,13 @@ def desc_tables() -> tuple[np.ndarray, np.ndarray]:
     return desc_gauss, desc_tile
 
 
+def desc_tables_on(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`desc_tables` as tensors on ``device``."""
+    return tuple(torch.as_tensor(t, device=device) for t in desc_tables())
+
+
 def build_const_info(config: Config, device="cpu") -> ConstInfo:
-    desc_gauss, desc_tile = desc_tables()
+    desc_gauss, desc_tile = desc_tables_on(device)
     max_extrema = config.max_extrema
     return ConstInfo(
         sigma0=float(config.sigma),
@@ -65,6 +70,6 @@ def build_const_info(config: Config, device="cpu") -> ConstInfo:
         max_extrema=max_extrema,
         max_orientations=max_extrema + max_extrema // 4,
         norm_multi=int(config.norm_multiplier),
-        desc_gauss=torch.as_tensor(desc_gauss, device=device),
-        desc_tile=torch.as_tensor(desc_tile, device=device),
+        desc_gauss=desc_gauss,
+        desc_tile=desc_tile,
     )

@@ -16,6 +16,7 @@ import torch
 
 from .config import (Config, DescMode, GaussMode, NormMode, ScalingMode,
                      SiftMode, check_supported)
+from .constants import ConstInfo, build_const_info
 from .features import FeaturesHost, assemble_features
 from .gauss import build_gauss_info
 from .kernels.detect import detect
@@ -176,17 +177,40 @@ def quantize_descs(desc: torch.Tensor, mode: str, norm_multi: int):
     return q.cpu().numpy().astype(dt).astype(np.float32) * (bound / levels)
 
 
+def dispatch_descriptors(plan: ExtractorPlan, consts: ConstInfo | None,
+                         stack, field, xpos, ypos, lpos, sigma, ang):
+    """Descriptor-mode dispatch (popsift_tpu/extract.py:185-237): loop
+    descriptors read the gradient field (K6); NoTile and IGrid, which
+    compute the same numbers, sample the blurred stack through per-slot
+    windows (K8, K9) and need ``consts``' two descriptor tables on the
+    stack's device."""
+    if plan.desc_mode == DescMode.LOOP:
+        return ops_desc.loop_descriptors(field, xpos, ypos, lpos, sigma, ang,
+                                         plan.desc_win)
+    if plan.desc_mode in (DescMode.NOTILE, DescMode.IGRID):
+        return ops_desc.grid_descriptors_windowed(
+            stack, xpos, ypos, lpos, sigma, ang, plan.desc_win,
+            consts.desc_gauss, consts.desc_tile)
+    raise NotImplementedError(
+        f"popsift_torch does not implement desc_mode="
+        f"{plan.desc_mode.value} yet")
+
+
 def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
-                            desc_transfer: str) -> dict:
-    """Everything after the pyramid for octave ``o``; host arrays."""
+                            desc_transfer: str, field=None,
+                            consts: ConstInfo | None = None) -> dict:
+    """Everything after the pyramid for octave ``o``; host arrays.  The
+    gradient field is computed from ``stack`` (K2) unless it is given;
+    ``consts`` is needed by the NoTile and IGrid modes only."""
     _, ext = octave_keypoints(plan, o, dog)
-    field = grad_field(stack)
+    if field is None:
+        field = grad_field(stack)
     num_ori, oris = ops_ori.assign_orientations(
         field, ext.xpos, ext.ypos, ext.lpos, ext.sigma)
     feat, ang, num_eff = descriptor_rows(plan, o, num_ori, oris)
-    desc = ops_desc.loop_descriptors(
-        field, ext.xpos[feat], ext.ypos[feat], ext.lpos[feat],
-        ext.sigma[feat], ang, plan.desc_win)
+    desc = dispatch_descriptors(plan, consts, stack, field, ext.xpos[feat],
+                                ext.ypos[feat], ext.lpos[feat],
+                                ext.sigma[feat], ang)
     if plan.norm_mode == NormMode.ROOT_SIFT:
         desc = ops_desc.normalize_rootsift(desc, plan.norm_multi)
     else:
@@ -206,15 +230,20 @@ def extract_features(image, config: Config,
     plan = make_plan(config, w, h)
     gauss = build_gauss_info(config)
     img = to_unit_image(image, device)
+    # the sampling descriptor modes read the blurred stack and the two
+    # descriptor tables; the loop mode reads only the field, so chain
+    # octaves then keep only level L-3
+    full_stacks = plan.desc_mode != DescMode.LOOP
+    consts = build_const_info(config, device=device) if full_stacks else None
     octaves = []
     src = img
     for o in range(plan.octaves):
-        stack, dog = ops_pyr.build_octave(src, o, plan.dims, plan.levels,
-                                          gauss, plan.sift_mode,
-                                          plan.upscale_factor)
-        octaves.append(extract_octave_features(plan, o, stack, dog,
-                                               config.desc_transfer))
-        src = stack
+        stack, src, dog, field = ops_pyr.octave_outputs(
+            src, o, plan.dims, plan.levels, gauss, plan.sift_mode,
+            plan.upscale_factor, full_stacks)
+        octaves.append(extract_octave_features(
+            plan, o, stack, dog, config.desc_transfer, field=field,
+            consts=consts))
     return assemble_features(octaves, plan.upscale_factor)
 
 

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 KERNELS = ("sep_blur", "grad_field", "detect", "refine", "ori_hist",
-           "desc_loop")
+           "desc_loop", "octave_chain", "gather_windows", "desc_grid")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -42,6 +42,10 @@ _SIGNATURES = {
                    _F, _F, _F, _I, _P, _P, _P, _P, _P, _P, _P],
     "psk_ori_hist": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "psk_desc_loop": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "psk_octave_chain": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
+    "psk_gather_windows": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    "psk_desc_grid": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                      _P, _P],
 }
 
 _lock = threading.Lock()

@@ -29,8 +29,16 @@ test bounds how many such features each image may have: one in a hundred
 for textured and hopper (each has one).  The blob image's three features sit at the centres
 of radially symmetric Gaussian blobs, whose gradient histograms are flat:
 all of them tie by construction.
+
+The NoTile descriptor mode is compared once more on ``textured_image``:
+``extract_features(img, Config(desc_mode=notile), device="cpu")`` against
+the JAX package's extractor (``get_extractor``, as test_desc_modes.py
+runs it), with the end-to-end tolerances above.  Its orientation stage is
+the loop mode's, so its keypoints must equal the port's own loop-mode
+keypoints exactly.
 """
 
+import contextlib
 from pathlib import Path
 
 import numpy as np
@@ -43,6 +51,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import popsift_tpu  # noqa: E402
 from popsift_tpu import extract as jext  # noqa: E402
+from popsift_tpu import features as jfeat  # noqa: E402
 from popsift_tpu import gauss as jgauss  # noqa: E402
 from popsift_tpu.ops import pyramid as jpyr  # noqa: E402
 
@@ -60,6 +69,19 @@ IMAGES = ["textured", "blob", "hopper"]
 TIED_SHARE = {"textured": 0.01, "blob": 1.0, "hopper": 0.01}
 TIE_RTOL = 1e-3
 U16_STEP = 1.0 / 65535.0
+
+
+@contextlib.contextmanager
+def one_thread():
+    """PyTorch's CPU kernels evaluate atan2 (and sqrt) in vector or scalar
+    form depending on how a call is split across threads, which can move
+    the last bit; on one thread, repeated computations are bit-equal."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def _read_pgm(path: Path) -> np.ndarray:
@@ -224,3 +246,34 @@ def test_feature_text_output_matches(results, image, as_uchar):
     tf.print(b, write_as_uchar=as_uchar)
     assert b.getvalue() == a.getvalue()
     assert len(b.getvalue().splitlines()) == ref.get_descriptor_count()
+
+
+@pytest.fixture(scope="module")
+def notile(textured_image):
+    img = textured_image
+    h, w = img.shape
+    jcfg = popsift_tpu.Config()
+    jcfg.set_desc_mode(popsift_tpu.DescMode.NOTILE)
+    fn, _ = jext.get_extractor(jcfg, w, h)
+    ref = jfeat.assemble_features(fn(jext.normalize_input(img)),
+                                  jcfg.get_upscale_factor())
+    tcfg = popsift_torch.Config()
+    tcfg.set_desc_mode(popsift_torch.DescMode.NOTILE)
+    with one_thread():
+        port = text.extract_features(img, tcfg, device="cpu")
+        loop = text.extract_features(img, popsift_torch.Config(),
+                                     device="cpu")
+    return ref, port, _tied_features(img), loop
+
+
+def test_notile_end_to_end_matches(notile):
+    ref, port, tied, _ = notile
+    _compare(ref, port, tied, sigma_rtol=1e-4, ori_tol=2e-3, desc_tol=1e-3)
+
+
+def test_notile_keypoints_equal_loop_keypoints(notile):
+    grid = notile[1].soa()
+    loop = notile[3].soa()
+    for k in ("xpos", "ypos", "sigma", "num_ori", "orientation",
+              "debug_octave"):
+        np.testing.assert_array_equal(grid[k], loop[k], err_msg=k)

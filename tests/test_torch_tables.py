@@ -207,8 +207,8 @@ def test_wrappers_take_the_kernel_path_off_the_cpu(monkeypatch):
     """A wrapper runs its plain version only for CPU tensors: any other
     tensor goes to the kernel library (refused here), never back to the
     plain version."""
-    from popsift_torch.kernels import _lib, binwin, blur, detect, grad, \
-        refine
+    from popsift_torch.kernels import _lib, binwin, blur, desc_grid, \
+        detect, grad, octave, refine, windows
 
     class Refused(Exception):
         pass
@@ -236,6 +236,14 @@ def test_wrappers_take_the_kernel_path_off_the_cpu(monkeypatch):
         lambda: binwin.desc_loop(meta(12, 16, 32), meta(3), meta(3),
                                  meta(3, dtype=torch.int32), meta(3),
                                  meta(3), 56),
+        lambda: octave.octave_chain(meta(40, 140), [taps] * 4, (1, 4, 4, 4),
+                                    emit_stack=True),
+        lambda: windows.gather_windows(meta(6, 16, 32),
+                                       *(meta(3, dtype=torch.int32)
+                                         for _ in range(3)), 8, 8),
+        lambda: desc_grid.desc_grid(meta(3, 8, 128), *(meta(3)
+                                                      for _ in range(6)),
+                                    32, 16, meta(40, 40), meta(16)),
     ]
     for c in calls:
         with pytest.raises(Refused):
@@ -249,8 +257,9 @@ def test_wrappers_take_the_kernel_path_off_the_cpu(monkeypatch):
     lambda c: c.set_gauss_mode("fixed9"),
     lambda c: c.set_gauss_mode("vlfeat-direct"),
     lambda c: c.set_scaling_mode(tcfg.ScalingMode.SCALE_DIRECT),
-    lambda c: c.set_desc_mode("notile"),
+    lambda c: c.set_desc_mode("grid"),
     lambda c: c.set_filter_max_extrema(100),
+    lambda c: c.set_desc_mode("iloop"),
 ])
 def test_unimplemented_modes_raise(mutate):
     cfg = tcfg.Config()
