@@ -8,15 +8,18 @@ JAX nor popsift_tpu.  In order it:
 
 1. prints the card's name and power limit, the torch and CUDA versions, and
    builds the kernel library from popsift_torch/csrc (printing the build
-   time and what ptxas reports per kernel);
+   time and what ptxas reports);
 2. checks every kernel against its plain PyTorch version on the card, on
    the inputs the main paths give it for a 1080p scene: the octave-0
    levels, DoG and stack for the blur, octave-chain (both emit modes, and
    against the per-level kernels), gradient and detection kernels, and
    the real candidates and keypoint rows of the scene's busiest octave for
-   refinement, orientation, loop descriptors, the window gather (both call
-   shapes) and the NoTile descriptors; it times both with CUDA events
-   (median of repeated calls) beside the kernel's bound;
+   refinement, orientation, loop descriptors (from the field and from the
+   stack; the stack kernels also bit for bit against the field kernels on
+   K2's field, at octave 0 and at the busiest octave), the window gather
+   (both call shapes) and the NoTile, Grid and ILoop descriptors; it times
+   both with CUDA events (median of repeated calls) beside the kernel's
+   bound;
 3. drives the default path, PopSift(Config()).enqueue(...).get(), on four
    distinct 1080p scenes with the launch counts reset just before, fails
    if a kernel of that path was not launched or the features per image
@@ -25,16 +28,24 @@ JAX nor popsift_tpu.  In order it:
    range) and profiles one more for the device's busy and idle share;
 4. drives the NoTile path, PopSift(Config(desc_mode=notile)), the same
    way, and checks that its keypoints are the default path's;
-5. holds the card's features of a small scene against the plain PyTorch
-   versions run on the CPU, for both paths;
-6. prints the kernel table as one JSON line and, last, the device line.
+5. drives the stack-kernel path (POPSIFT_TPU_STACK_KERNELS=1 on the
+   default Config) the same way: no gradient-field, field-histogram or
+   field-descriptor launch, and features equal to the default path's bit
+   for bit; the switch is restored afterwards;
+6. drives the Grid and ILoop paths for one pass each (launches, keypoints
+   equal to the default path's, bit-identical repeat, one profiled pass);
+7. holds the card's features of a small scene against the plain PyTorch
+   versions run on the CPU, for all five paths;
+8. prints the kernel table as one JSON line and, last, the device line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -60,6 +71,10 @@ OPS_ORI_PIXEL = 16            # distance, exp weight, bin
 OPS_DESC_PIXEL = 100          # rotation, exp weight, angle, 16 tiles x 2 bins
 OPS_GRID_SAMPLE = 70          # rotation, 4 bilinear taps, hypot, atan2, bins
 OPS_GRID_TILES = 2 * 16 * (40 * 32 + 128)   # the two tile contractions
+OPS_ROUNDED_SAMPLE = 60       # position, 2 roundings, recomputed weights,
+#                               4 taps, hypot, atan2, exp, 8 bin adds
+OPS_ILOOP_SAMPLE = 90         # 4 bilinear samples (12 each), hypot, atan2,
+#                               exp, weights, 8 bin adds
 
 # Features per image of the default path on the four 1080p scenes (seeds
 # 0-3), as the per-level pyramid gave them; the fused chain is bit-equal
@@ -70,6 +85,15 @@ LOOP_PATH = ("sep_blur", "octave_chain", "grad_field", "detect", "refine",
              "ori_hist", "desc_loop")
 NOTILE_PATH = ("sep_blur", "octave_chain", "grad_field", "detect", "refine",
                "ori_hist", "gather_windows", "desc_grid")
+STACK_PATH = ("sep_blur", "octave_chain", "detect", "refine",
+              "ori_hist_stack", "desc_loop_stack")
+GRID_PATH = ("sep_blur", "octave_chain", "grad_field", "detect", "refine",
+             "ori_hist", "gather_windows", "desc_grid_rounded")
+ILOOP_PATH = ("sep_blur", "octave_chain", "grad_field", "detect", "refine",
+              "ori_hist", "gather_windows", "desc_iloop")
+# the kernels the stack path must not launch: it reads no gradient field
+NOT_ON_STACK_PATH = ("grad_field", "ori_hist", "desc_loop")
+STACK_SWITCH = "POPSIFT_TPU_STACK_KERNELS"
 
 
 def make_scene(seed: int, h: int, w: int) -> np.ndarray:
@@ -176,6 +200,14 @@ class Table:
                            "popsift_tpu/kernels/windows2.py:76"),
         "desc_grid": ("popsift_torch/csrc/desc_grid.cu",
                       "popsift_tpu/ops/descriptors.py:529"),
+        "ori_hist_stack": ("popsift_torch/csrc/binwin.cu",
+                           "popsift_tpu/kernels/binwin.py:656"),
+        "desc_loop_stack": ("popsift_torch/csrc/binwin.cu",
+                            "popsift_tpu/kernels/binwin.py:703"),
+        "desc_grid_rounded": ("popsift_torch/csrc/desc_grid.cu",
+                              "popsift_tpu/ops/descriptors.py:657"),
+        "desc_iloop": ("popsift_torch/csrc/desc_grid.cu",
+                       "popsift_tpu/ops/descriptors.py:1091"),
     }
 
     def __init__(self):
@@ -294,6 +326,7 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     mp = detect.detect_plain(dog, gate, border)
     require(torch.equal(m, mp), "K3 mask: kernel != plain")
     cands = ops_ext.compact_mask(m, plan.cand_caps[0])
+    octave0 = (stack, dog)
     cands_p = ops_ext.compact_mask(mp, plan.cand_caps[0])
     require(cands.count == cands_p.count and torch.equal(cands.x, cands_p.x)
             and torch.equal(cands.y, cands_p.y)
@@ -367,17 +400,10 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     ms = cuda_ms(lambda: binwin.ori_hist(*args5))
     pms = cuda_ms(lambda: binwin.ori_hist_plain(*args5), reps=10)
     ne = ex.count
-    rx = torch.round(ex.xpos).int()
-    ry = torch.round(ex.ypos).int()
-    rad = torch.round(3.0 * (1.5 * ex.sigma)).int()
-    lp = ex.lpos.clamp(0, L - 1)
-    x0, x1 = (rx - rad).clamp(min=1), (rx + rad).clamp(max=w - 2)
-    y0, y1 = (ry - rad).clamp(min=1), (ry + rad).clamp(max=h - 2)
-    box = int(((x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0))
-              .sum())
-    union = box_union_pixels(lp, x0, x1, y0, y1, L, h, w)
+    work, union, _ = support_pixels(ex.xpos, ex.ypos, ex.lpos, ex.sigma, L,
+                                    h, w)
     table.add("ori_hist", f"K5 ori_hist {ne} extrema", max_abs(hk, hp), ms,
-              pms, 8 * union + 16 * ne + 144 * ne, OPS_ORI_PIXEL * box)
+              pms, 8 * union + 16 * ne + 144 * ne, OPS_ORI_PIXEL * work)
 
     # K6 on the octave's (extremum, orientation) rows
     num_ori, oris = ops_ori.assign_orientations(field, ex.xpos, ex.ypos,
@@ -396,20 +422,137 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     ms = cuda_ms(lambda: binwin.desc_loop(*args6))
     pms = cuda_ms(lambda: binwin.desc_loop_plain(*args6), reps=10)
     nd = int(feat.shape[0])
-    R = binwin.desc_support(args6[4], half).int()
-    drx = torch.round(args6[1]).int()
-    dry = torch.round(args6[2]).int()
-    x0, x1 = (drx - R).clamp(min=1), (drx + R).clamp(max=w - 2)
-    y0, y1 = (dry - R).clamp(min=1), (dry + R).clamp(max=h - 2)
-    box = int(((x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0))
-              .sum())
-    union = box_union_pixels(args6[3].clamp(0, L - 1), x0, x1, y0, y1, L,
-                             h, w)
+    work, union, _ = support_pixels(*args6[1:5], L, h, w, ang=args6[5],
+                                    half=half)
     table.add("desc_loop", f"K6 desc_loop {nd} rows", max_abs(dk, dp), ms,
-              pms, 8 * union + 20 * nd + 512 * nd, OPS_DESC_PIXEL * box)
+              pms, 8 * union + 20 * nd + 512 * nd, OPS_DESC_PIXEL * work)
+
+    # K10 and K11 at octave 0 and at this octave, timed at this one
+    stack0, dog0 = octave0
+    _, ex0 = ext.octave_keypoints(plan, 0, dog0)
+    check_stack_kernels(torch, plan, 0, stack0, ex0, table, timed=False)
+    check_stack_kernels(torch, plan, ob, stack, ex, table, timed=True)
 
     check_windows_and_grid(torch, plan, stack, args6[1:6], table)
     torch.cuda.synchronize()
+
+
+def support_pixels(xs, ys, lpos, sigma, L, h, w, ang=None, half=0):
+    """The pixels that K5/K10 (``ang`` None: the orientation disc
+    int(dx^2 + dy^2) <= round(4.5 sigma)^2, s_orientation.cu:142) or
+    K6/K11 (the rotated square |u|_inf < 2.5 in SBP units, outside which
+    every tile weight is zero, s_desc_loop.cu:87-139) need, in the 1-pixel
+    interior of each slot's level.  The kernels walk the bounding box and
+    skip the rest; a bound counts only these.  Returns (pixels summed over
+    the slots: the binning work; distinct pixels: the field pixels K5/K6
+    read; distinct horizontal or vertical neighbours of those pixels: the
+    stack pixels whose central differences K10/K11 take)."""
+    import torch
+    from popsift_torch.kernels import binwin
+    dev = xs.device
+    if ang is None:
+        R = torch.round(3.0 * (1.5 * sigma)).long()
+    else:
+        R = binwin.desc_support(sigma, half)
+    rx, ry = torch.round(xs).long(), torch.round(ys).long()
+    lp = lpos.long().clamp(0, L - 1)
+    need = torch.zeros((L, h, w), dtype=torch.bool, device=dev)
+    nbr = torch.zeros_like(need)
+    work = 0
+    order = torch.argsort(R)
+    for start in range(0, order.numel(), 256):
+        e = order[start:start + 256]
+        offs = torch.arange(-int(R[e].max()), int(R[e].max()) + 1,
+                            device=dev)
+        jj, ii = rx[e, None] + offs, ry[e, None] + offs
+        inbox = offs.abs()[None, :] <= R[e, None]
+        ok = ((inbox & (jj >= 1) & (jj <= w - 2))[:, None, :]
+              & (inbox & (ii >= 1) & (ii <= h - 2))[:, :, None])
+        dxf = (jj.float() - xs[e, None])[:, None, :]
+        dyf = (ii.float() - ys[e, None])[:, :, None]
+        if ang is None:
+            r2 = (R[e] * R[e])[:, None, None]
+            ok &= (dxf * dxf + dyf * dyf).int() <= r2
+        else:
+            sbp = (3.0 * sigma[e]).abs()[:, None, None]
+            cos_t = torch.cos(ang[e])[:, None, None]
+            sin_t = torch.sin(ang[e])[:, None, None]
+            ux = (cos_t * dxf + sin_t * dyf) / sbp
+            uy = (cos_t * dyf - sin_t * dxf) / sbp
+            ok &= (sbp > 0) & (ux.abs() < 2.5) & (uy.abs() < 2.5)
+        work += int(ok.sum())
+        k, a, b = ok.nonzero(as_tuple=True)
+        lv, y, x = lp[e][k], ii[k, a], jj[k, b]
+        need[lv, y, x] = True
+        for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0)):
+            nbr[lv, y + dy, x + dx] = True
+    return work, int(need.sum()), int(nbr.sum())
+
+
+def check_stack_kernels(torch, plan, o, stack, ex, table: Table,
+                        timed: bool) -> None:
+    """K10 and K11 on octave ``o``'s extrema and descriptor rows: bit for
+    bit against K5 and K6 on K2's field of the same stack, run to run,
+    and against their plain versions (K5's and K6's tolerances)."""
+    from popsift_torch import extract as ext
+    from popsift_torch.kernels import binwin, grad
+    from popsift_torch.ops import orientation as ops_ori
+
+    L, h, w = stack.shape
+    field = grad.grad_field(stack)
+    a10 = (stack, ex.xpos, ex.ypos, ex.lpos, ex.sigma)
+    hk = binwin.ori_hist_stack(*a10)
+    require(torch.equal(hk, binwin.ori_hist(field, *a10[1:])),
+            f"K10 differs from K5 on K2's field at octave {o}")
+    require(torch.equal(hk, binwin.ori_hist_stack(*a10)),
+            "K10 is not deterministic")
+    hp = binwin.ori_hist_stack_plain(*a10)
+    require(torch.allclose(hk, hp, rtol=1e-5, atol=1e-6),
+            f"K10 histograms differ by {max_abs(hk, hp):.3g}")
+    num_ori, oris = ops_ori.assign_orientations(field, *a10[1:])
+    feat, ang, _ = ext.descriptor_rows(plan, o, num_ori, oris)
+    half = plan.desc_win // 2
+    rows = tuple(v[feat].contiguous() for v in a10[1:]) + (ang.contiguous(),)
+    dk = binwin.desc_loop_stack(stack, *rows, half)
+    require(torch.equal(dk, binwin.desc_loop(field, *rows, half)),
+            f"K11 differs from K6 on K2's field at octave {o}")
+    require(torch.equal(dk, binwin.desc_loop_stack(stack, *rows, half)),
+            "K11 is not deterministic")
+    dp = binwin.desc_loop_stack_plain(stack, *rows, half)
+    require(torch.allclose(dk, dp, rtol=1e-5, atol=1e-6),
+            f"K11 descriptors differ by {max_abs(dk, dp):.3g}")
+    ne, nd = ex.count, int(feat.shape[0])
+    print(f"  K10/K11 at octave {o} ({h}x{w}): {ne} extrema, {nd} rows; "
+          f"bit-equal to K5/K6 on K2's field and run to run; within "
+          f"{max_abs(hk, hp):.3g} / {max_abs(dk, dp):.3g} of their plain "
+          f"versions", flush=True)
+    if not timed:
+        return
+    work, _, nbr = support_pixels(*a10[1:], L, h, w)
+    ms = cuda_ms(lambda: binwin.ori_hist_stack(*a10))
+    pms = cuda_ms(lambda: binwin.ori_hist_stack_plain(*a10), reps=10)
+    table.add("ori_hist_stack", f"K10 ori_hist_stack {ne} extrema",
+              max_abs(hk, hp), ms, pms, 4 * nbr + 16 * ne + 144 * ne,
+              (OPS_ORI_PIXEL + OPS_GRAD) * work)
+    work, _, nbr = support_pixels(*rows[:4], L, h, w, ang=rows[4],
+                                  half=half)
+    ms = cuda_ms(lambda: binwin.desc_loop_stack(stack, *rows, half))
+    pms = cuda_ms(lambda: binwin.desc_loop_stack_plain(stack, *rows, half),
+                  reps=10)
+    table.add("desc_loop_stack", f"K11 desc_loop_stack {nd} rows",
+              max_abs(dk, dp), ms, pms, 4 * nbr + 20 * nd + 512 * nd,
+              (OPS_DESC_PIXEL + OPS_GRAD) * work)
+
+    def field_path():
+        f = grad.grad_field(stack)
+        binwin.ori_hist(f, *a10[1:])
+        binwin.desc_loop(f, *rows, half)
+
+    def stack_path():
+        binwin.ori_hist_stack(*a10)
+        binwin.desc_loop_stack(stack, *rows, half)
+    print(f"  K2 + K5 + K6 on this octave: {cuda_ms(field_path):.6f} ms; "
+          f"K10 + K11: {cuda_ms(stack_path):.6f} ms", flush=True)
 
 
 def check_chain(torch, plan, gauss, stack, dog, table: Table) -> None:
@@ -530,6 +673,36 @@ def check_windows_and_grid(torch, plan, stack, rows, table: Table) -> None:
               pms, 4 * n * wy * 128 + 4 * 7 * n + 4 * (1600 + 16)
               + 512 * n, n * (1600 * OPS_GRID_SAMPLE + OPS_GRID_TILES))
 
+    # K12 and K13 on the same windows and rows
+    args = args9[:9]
+    for name, label, samples, per_sample in (
+            ("desc_grid_rounded", "K12", 16 * 256, OPS_ROUNDED_SAMPLE),
+            ("desc_iloop", "K13", 16 * 1024, OPS_ILOOP_SAMPLE)):
+        kern = getattr(desc_grid, name)
+        plain = getattr(desc_grid, name + "_plain")
+        k = kern(*args)
+        require(torch.equal(k, kern(*args)), f"{label} is not deterministic")
+        p = plain(*args)
+        # the plain version sums each tile in another order; a Grid sample
+        # whose position lies within a last-bit difference of k + 0.5
+        # (cosf / sinf of the kernel against torch's) may round to the
+        # other pixel, which moves its row further: at most 1% of the rows
+        # beyond 1e-5 of the largest entry, none beyond 1e-3
+        scale = float(p.abs().max())
+        row_err = (k - p).abs().amax(dim=1)
+        off = int((row_err > 1e-5 * scale).sum())
+        print(f"  {label}: bit-identical run to run; within "
+              f"{max_abs(k, p):.3g} of its plain version (largest entry "
+              f"{scale:.3g}); {off} of {n} rows beyond 1e-5 of it",
+              flush=True)
+        require(off <= n // 100 and float(row_err.max()) <= 1e-3 * scale,
+                f"{label} descriptors differ from the plain version")
+        ms = cuda_ms(lambda: kern(*args))
+        pms = cuda_ms(lambda: plain(*args), reps=10)
+        table.add(name, f"{label} {name} {n} rows", max_abs(k, p), ms, pms,
+                  4 * n * wy * 128 + 4 * 6 * n + 512 * n,
+                  n * samples * per_sample)
+
 
 def features_equal(a, b) -> bool:
     sa, sb = a.soa(), b.soa()
@@ -556,17 +729,19 @@ MAIN_PATH_PASSES = 5
 
 
 def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
-             device="cuda") -> tuple[dict, list]:
-    """Phases 3 and 4: the user-facing entry point on the card with
-    ``cfg``.  The scenes go through MAIN_PATH_PASSES times; the launch
-    counts are those of the first pass, and ms per image is the median
-    pass, with the range.  Every kernel of ``path_kernels`` must have been
-    launched.  Returns the path's numbers and the first pass's features."""
+             device="cuda", passes: int = MAIN_PATH_PASSES,
+             not_launched=()) -> tuple[dict, list]:
+    """Phases 3-6: the user-facing entry point on the card with ``cfg``.
+    The scenes go through ``passes`` times; the launch counts are those of
+    the first pass, and ms per image is the median pass, with the range.
+    Every kernel of ``path_kernels`` must have been launched, and none of
+    ``not_launched``.  Returns the path's numbers and the first pass's
+    features."""
     from popsift_torch import kernels
 
     h, w = scenes[0].shape
     print(f"{label} on {len(scenes)} distinct {w}x{h} scenes, "
-          f"{MAIN_PATH_PASSES} passes", flush=True)
+          f"{passes} pass{'es' if passes > 1 else ''}", flush=True)
 
     def one_pass(ps):
         t0 = time.perf_counter()
@@ -582,8 +757,7 @@ def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
         kernels.reset_launches()
         feats, ms_first = one_pass(ps)
         counts = kernels.launches()
-        pass_ms = [ms_first] + [one_pass(ps)[1]
-                                for _ in range(MAIN_PATH_PASSES - 1)]
+        pass_ms = [ms_first] + [one_pass(ps)[1] for _ in range(passes - 1)]
         again = ps.enqueue(w, h, scenes[0]).get()
     ms_img = float(np.median(pass_ms))
     print("  features per image: "
@@ -597,6 +771,9 @@ def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
     for name in path_kernels:
         require(counts[name] > 0,
                 f"kernel {name} was not launched on the {label} path")
+    for name in not_launched:
+        require(counts[name] == 0,
+                f"kernel {name} was launched on the {label} path")
     for f in feats:
         check_output(f, w, h)
     require(features_equal(feats[0], again),
@@ -667,7 +844,7 @@ def same_keypoints(a, b) -> bool:
 
 
 def check_against_cpu(torch, pt, cfg, label: str) -> None:
-    """Phase 5: the card's features of a small scene against the plain
+    """Phase 7: the card's features of a small scene against the plain
     versions on the CPU.  Both sides round each operation the same way,
     but exp/sin/cos/atan2/pow come from different maths libraries, so a
     feature may move by a few ulp; 99% of the CPU features must be found
@@ -693,7 +870,7 @@ def check_against_cpu(torch, pt, cfg, label: str) -> None:
     ddiff = np.abs(cpu.get_descriptors()[ic[both]]
                    - gpu.get_descriptors()[ig[both]]).max(axis=1)
     require(ddiff.size > 0, f"no matched descriptors ({label})")
-    print(f"phase 5 ({label}): 320x240 scene, {nc} CPU / {ng} GPU features, "
+    print(f"  {label}: 320x240 scene, {nc} CPU / {ng} GPU features, "
           f"{int(hit.sum())} matched; first descriptors of matched features "
           f"within {float(np.median(ddiff)):.3g} (median), "
           f"{float(ddiff.max()):.3g} (largest)", flush=True)
@@ -701,6 +878,33 @@ def check_against_cpu(torch, pt, cfg, label: str) -> None:
             f"card and CPU features disagree ({label})")
     require(float((ddiff <= 1e-3).mean()) >= 0.99,
             f"card and CPU descriptors disagree ({label})")
+
+
+def mode_config(pt, mode: str):
+    cfg = pt.Config()
+    cfg.set_desc_mode(pt.DescMode(mode))
+    return cfg
+
+
+def require_same_keypoints(ref_feats, feats, label: str) -> None:
+    require(all(same_keypoints(a, b) for a, b in zip(ref_feats, feats)),
+            f"the {label} path's keypoints differ from the default path's")
+    print("  keypoints (x, y, sigma, num_ori, orientations) identical to "
+          "the default path's on every scene", flush=True)
+
+
+@contextlib.contextmanager
+def stack_kernels_on():
+    """The stack-kernel switch on for the block, and as it was after."""
+    old = os.environ.get(STACK_SWITCH)
+    os.environ[STACK_SWITCH] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(STACK_SWITCH, None)
+        else:
+            os.environ[STACK_SWITCH] = old
 
 
 def main() -> int:
@@ -717,6 +921,8 @@ def main() -> int:
                     for m in sys.modules), "JAX was imported")
     from popsift_torch.kernels import _lib
 
+    # phases 2-4 run with the stack kernels off, whatever the caller set
+    os.environ.pop(STACK_SWITCH, None)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = smi_line()
@@ -749,28 +955,52 @@ def main() -> int:
             f"{DEFAULT_FEATURES}")
     print(f"  features per image as recorded: {got}", flush=True)
 
-    notile = pt.Config()
-    notile.set_desc_mode(pt.DescMode.NOTILE)
+    notile = mode_config(pt, "notile")
     print("phase 4: the NoTile path, ", end="")
-    grid_stats, grid_feats = run_path(
+    notile_stats, notile_feats = run_path(
         torch, pt, scenes, notile, "PopSift(Config(desc_mode=notile))",
         NOTILE_PATH)
-    require(all(same_keypoints(a, b) for a, b in zip(loop_feats,
-                                                     grid_feats)),
-            "the NoTile path's keypoints differ from the default path's")
-    print("  keypoints (x, y, sigma, num_ori, orientations) identical to "
-          "the default path's on every scene", flush=True)
+    require_same_keypoints(loop_feats, notile_feats, "NoTile")
+
+    print("phase 5: the stack-kernel path, ", end="")
+    with stack_kernels_on():
+        stack_stats, stack_feats = run_path(
+            torch, pt, scenes, pt.Config(),
+            f"PopSift(Config()) with {STACK_SWITCH}=1", STACK_PATH,
+            not_launched=NOT_ON_STACK_PATH)
+    require(all(features_equal(a, b) for a, b in zip(loop_feats,
+                                                     stack_feats)),
+            "the stack path's features differ from the default path's")
+    print(f"  features per image {tuple(stack_stats['features'])}, "
+          f"bit-identical to the default path's on every scene; no "
+          f"{', '.join(NOT_ON_STACK_PATH)} launch", flush=True)
+
+    stats = {"default": loop_stats, "notile": notile_stats,
+             "stack": stack_stats}
+    for mode, kernels in (("grid", GRID_PATH), ("iloop", ILOOP_PATH)):
+        print(f"phase 6: the {mode} path, ", end="")
+        stats[mode], feats = run_path(
+            torch, pt, scenes, mode_config(pt, mode),
+            f"PopSift(Config(desc_mode={mode}))", kernels, passes=1)
+        require_same_keypoints(loop_feats, feats, mode)
+
+    homes = {"default": LOOP_PATH, "notile": NOTILE_PATH,
+             "stack": STACK_PATH, "grid": GRID_PATH, "iloop": ILOOP_PATH}
     for name in table.rows:
-        by_path = {"loop": loop_stats["counts"][name],
-                   "notile": grid_stats["counts"][name]}
-        table.rows[name]["launches"] = (by_path["loop"] if name in LOOP_PATH
-                                        else by_path["notile"])
+        by_path = {p: st["counts"][name] for p, st in stats.items()}
+        home = next(p for p, kern in homes.items() if name in kern)
+        table.rows[name]["launches"] = by_path[home]
         table.rows[name]["launches_by_path"] = by_path
 
+    print("phase 7: the card against the CPU", flush=True)
     check_against_cpu(torch, pt, pt.Config(), "default")
     check_against_cpu(torch, pt, notile, "notile")
+    with stack_kernels_on():
+        check_against_cpu(torch, pt, pt.Config(), "stack kernels")
+    for mode in ("grid", "iloop"):
+        check_against_cpu(torch, pt, mode_config(pt, mode), mode)
 
-    print(json.dumps({"default_path": loop_stats, "notile_path": grid_stats}),
+    print(json.dumps({f"{p}_path": st for p, st in stats.items()}),
           flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": [table.rows[k] for k in _lib.KERNELS]}),

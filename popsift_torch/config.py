@@ -307,8 +307,6 @@ def unsupported_modes(config: Config) -> list[str]:
         out.append(f"gauss_mode={config.gauss_mode.value}")
     if config.scaling_mode == ScalingMode.SCALE_DIRECT:
         out.append("scaling_mode=direct")
-    if config.desc_mode in (DescMode.GRID, DescMode.ILOOP):
-        out.append(f"desc_mode={config.desc_mode.value}")
     if config.filter_max_extrema > 0:
         out.append("grid filter (filter_max_extrema > 0)")
     return out

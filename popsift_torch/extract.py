@@ -19,6 +19,7 @@ from .config import (Config, DescMode, GaussMode, NormMode, ScalingMode,
 from .constants import ConstInfo, build_const_info
 from .features import FeaturesHost, assemble_features
 from .gauss import build_gauss_info
+from .kernels.binwin import stack_kernels_enabled
 from .kernels.detect import detect
 from .kernels.grad import grad_field
 from .kernels.refine import refine, refine_params
@@ -178,39 +179,48 @@ def quantize_descs(desc: torch.Tensor, mode: str, norm_multi: int):
 
 
 def dispatch_descriptors(plan: ExtractorPlan, consts: ConstInfo | None,
-                         stack, field, xpos, ypos, lpos, sigma, ang):
-    """Descriptor-mode dispatch (popsift_tpu/extract.py:185-237): loop
-    descriptors read the gradient field (K6); NoTile and IGrid, which
-    compute the same numbers, sample the blurred stack through per-slot
-    windows (K8, K9) and need ``consts``' two descriptor tables on the
-    stack's device."""
+                         stack, field, xpos, ypos, lpos, sigma, ang,
+                         stack_kernels: bool = False):
+    """Descriptor-mode dispatch (popsift_tpu/extract.py:185-237).  Loop
+    descriptors read the gradient field (K6), or the stack (K11) with
+    ``stack_kernels``.  The sampling modes read the blurred stack through
+    per-row windows (K8): NoTile and IGrid, which compute the same numbers,
+    with K9 and ``consts``' two descriptor tables on the stack's device;
+    Grid with K12; ILoop with K13."""
     if plan.desc_mode == DescMode.LOOP:
-        return ops_desc.loop_descriptors(field, xpos, ypos, lpos, sigma, ang,
-                                         plan.desc_win)
-    if plan.desc_mode in (DescMode.NOTILE, DescMode.IGRID):
-        return ops_desc.grid_descriptors_windowed(
-            stack, xpos, ypos, lpos, sigma, ang, plan.desc_win,
-            consts.desc_gauss, consts.desc_tile)
-    raise NotImplementedError(
-        f"popsift_torch does not implement desc_mode="
-        f"{plan.desc_mode.value} yet")
+        return ops_desc.loop_descriptors(
+            field, xpos, ypos, lpos, sigma, ang, plan.desc_win,
+            stack=stack if stack_kernels else None)
+    if plan.desc_mode == DescMode.GRID:
+        return ops_desc.grid_rounded_descriptors_windowed(
+            stack, xpos, ypos, lpos, sigma, ang, plan.desc_win)
+    if plan.desc_mode == DescMode.ILOOP:
+        return ops_desc.iloop_descriptors_windowed(
+            stack, xpos, ypos, lpos, sigma, ang, plan.desc_win)
+    return ops_desc.grid_descriptors_windowed(
+        stack, xpos, ypos, lpos, sigma, ang, plan.desc_win,
+        consts.desc_gauss, consts.desc_tile)
 
 
 def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
                             desc_transfer: str, field=None,
-                            consts: ConstInfo | None = None) -> dict:
-    """Everything after the pyramid for octave ``o``; host arrays.  The
-    gradient field is computed from ``stack`` (K2) unless it is given;
-    ``consts`` is needed by the NoTile and IGrid modes only."""
+                            consts: ConstInfo | None = None,
+                            stack_kernels: bool = False) -> dict:
+    """Everything after the pyramid for octave ``o``; host arrays.  With
+    ``stack_kernels``, orientation and loop descriptors read ``stack``
+    (K10, K11); otherwise they read ``field``, computed from ``stack``
+    (K2) unless it is given.  ``consts`` is needed by the NoTile and IGrid
+    modes only."""
     _, ext = octave_keypoints(plan, o, dog)
-    if field is None:
+    if not stack_kernels and field is None:
         field = grad_field(stack)
     num_ori, oris = ops_ori.assign_orientations(
-        field, ext.xpos, ext.ypos, ext.lpos, ext.sigma)
+        field, ext.xpos, ext.ypos, ext.lpos, ext.sigma,
+        stack=stack if stack_kernels else None)
     feat, ang, num_eff = descriptor_rows(plan, o, num_ori, oris)
     desc = dispatch_descriptors(plan, consts, stack, field, ext.xpos[feat],
                                 ext.ypos[feat], ext.lpos[feat],
-                                ext.sigma[feat], ang)
+                                ext.sigma[feat], ang, stack_kernels)
     if plan.norm_mode == NormMode.ROOT_SIFT:
         desc = ops_desc.normalize_rootsift(desc, plan.norm_multi)
     else:
@@ -224,26 +234,32 @@ def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
 
 def extract_features(image, config: Config,
                      device="cuda") -> FeaturesHost:
-    """Extract the features of one (H, W) uint8 or [0,1] float image."""
+    """Extract the features of one (H, W) uint8 or [0,1] float image.
+    :func:`stack_kernels_enabled` is read once, here, and holds for the
+    whole image."""
     check_supported(config)
     h, w = np.shape(image)
     plan = make_plan(config, w, h)
     gauss = build_gauss_info(config)
     img = to_unit_image(image, device)
-    # the sampling descriptor modes read the blurred stack and the two
-    # descriptor tables; the loop mode reads only the field, so chain
-    # octaves then keep only level L-3
-    full_stacks = plan.desc_mode != DescMode.LOOP
-    consts = build_const_info(config, device=device) if full_stacks else None
+    stack_kernels = stack_kernels_enabled()
+    # the sampling descriptor modes and the stack kernels read every
+    # blurred level, and the loop mode's field path only the field, so
+    # chain octaves then keep only level L-3 (popsift_tpu staged.py:
+    # 180-182); NoTile and IGrid need the two descriptor tables
+    full_stacks = plan.desc_mode != DescMode.LOOP or stack_kernels
+    consts = (build_const_info(config, device=device)
+              if plan.desc_mode in (DescMode.NOTILE, DescMode.IGRID)
+              else None)
     octaves = []
     src = img
     for o in range(plan.octaves):
         stack, src, dog, field = ops_pyr.octave_outputs(
             src, o, plan.dims, plan.levels, gauss, plan.sift_mode,
-            plan.upscale_factor, full_stacks)
+            plan.upscale_factor, full_stacks, need_field=not stack_kernels)
         octaves.append(extract_octave_features(
             plan, o, stack, dog, config.desc_transfer, field=field,
-            consts=consts))
+            consts=consts, stack_kernels=stack_kernels))
     return assemble_features(octaves, plan.upscale_factor)
 
 

@@ -31,7 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 KERNELS = ("sep_blur", "grad_field", "detect", "refine", "ori_hist",
-           "desc_loop", "octave_chain", "gather_windows", "desc_grid")
+           "desc_loop", "octave_chain", "gather_windows", "desc_grid",
+           "ori_hist_stack", "desc_loop_stack", "desc_grid_rounded",
+           "desc_iloop")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -46,6 +48,12 @@ _SIGNATURES = {
     "psk_gather_windows": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "psk_desc_grid": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                       _P, _P],
+    "psk_ori_hist_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "psk_desc_loop_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P,
+                            _P],
+    "psk_desc_grid_rounded": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _P, _P],
+    "psk_desc_iloop": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,18 +1,24 @@
-"""K5 and K6: orientation histograms and loop-mode descriptors read from
-the interleaved gradient field (csrc/binwin.cu).
+"""K5 / K10: orientation histograms, and K6 / K11: loop-mode descriptors
+(csrc/binwin.cu).  K5 and K6 read the interleaved gradient field; K10 and
+K11 compute each pixel's gradient from the blurred stack inside the
+kernel, as the reference does (s_gradiant.h:55-69).
 
-Replace popsift_tpu/kernels/binwin.py:ori_hist_fused and desc_loop_fused.
-The plain versions gather one square window per slot and bin it with
-masked sums, the formulation of the JAX package's
-ops/orientation.py:_histograms and ops/descriptors.py:loop_descriptors;
-pixels outside a slot's support add exactly zero there as in the kernels.
-Slots go through in chunks of similar radius, so that each chunk's window
-is cut to its own largest radius.
+Replace popsift_tpu/kernels/binwin.py:ori_hist_fused, desc_loop_fused,
+ori_hist_stack_pallas and desc_loop_stack_pallas.  The plain versions
+gather one square window per slot and bin it with masked sums, the
+formulation of the JAX package's ops/orientation.py:_histograms and
+ops/descriptors.py:loop_descriptors; pixels outside a slot's support add
+exactly zero there as in the kernels.  The stack variants' plain versions
+take the window's gradient from the stack with K2's expressions, so on the
+same stack they give the field variants' numbers.  Slots go through in
+chunks of similar radius, so that each chunk's window is cut to its own
+largest radius.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -29,33 +35,69 @@ def _chunks(radius: torch.Tensor) -> list[torch.Tensor]:
     return [order[s:s + _CHUNK] for s in range(0, order.numel(), _CHUNK)]
 
 
-def _windows(field, lp, rx, ry, R):
-    """(n, S, S) mag and theta windows centred at (rx, ry), S = 2R+1,
-    read with clamped coordinates, plus the unclamped coordinates."""
-    L2, H, W = field.shape
-    offs = torch.arange(-R, R + 1, device=field.device)
-    jj = rx[:, None] + offs
-    ii = ry[:, None] + offs
+def stack_kernels_enabled() -> bool:
+    """Whether orientation and loop descriptors take K10 and K11 from the
+    blurred stack.  ``POPSIFT_TPU_STACK_KERNELS``, read at each call, with
+    the JAX package's rule (popsift_tpu/kernels/binwin.py:632): unset,
+    "" and "0" mean off, so one setting picks the same path in both
+    packages.  The switch is the whole gate: the JAX gate's shape limits
+    (W >= 384, H >= win rows + 16, win <= 112) come from its 384-lane slab
+    DMA, while K10 and K11 read their support directly and take every
+    octave."""
+    return os.environ.get("POPSIFT_TPU_STACK_KERNELS", "") not in ("", "0")
+
+
+def _offsets(rx, ry, R, device):
+    offs = torch.arange(-R, R + 1, device=device)
+    return rx[:, None] + offs, ry[:, None] + offs
+
+
+def _field_windows(field, lp, rx, ry, R):
+    """(n, S, S) mag and theta windows of the (2L, H, W) field centred at
+    (rx, ry), S = 2R+1, read with clamped coordinates, plus the unclamped
+    coordinates."""
+    _, H, W = field.shape
+    jj, ii = _offsets(rx, ry, R, field.device)
     base = (2 * lp)[:, None, None] * H + ii.clamp(0, H - 1)[:, :, None]
     idx = base * W + jj.clamp(0, W - 1)[:, None, :]
     flat = field.reshape(-1)
     return flat[idx], flat[idx + H * W], jj, ii
 
 
-def ori_hist_plain(field, x, y, lpos, sigma) -> torch.Tensor:
-    L2, H, W = field.shape
+def _stack_windows(stack, lp, rx, ry, R):
+    """The same windows with the gradient taken from the (L, H, W) stack:
+    K2's central differences, sqrt and atan2 (ops/gradients.py) at the
+    clamped coordinates; outside the 1-pixel interior the values differ
+    from the field's, and every caller masks them out."""
+    _, H, W = stack.shape
+    jj, ii = _offsets(rx, ry, R, stack.device)
+    x = jj.clamp(0, W - 1)[:, None, :]
+    y = ii.clamp(0, H - 1)[:, :, None]
+    row = lp[:, None, None] * H
+    flat = stack.reshape(-1)
+
+    def at(yy, xx):
+        return flat[(row + yy) * W + xx]
+
+    dx = at(y, (x + 1).clamp(max=W - 1)) - at(y, (x - 1).clamp(min=0))
+    dy = at((y + 1).clamp(max=H - 1), x) - at((y - 1).clamp(min=0), x)
+    return torch.sqrt(dx * dx + dy * dy), torch.atan2(dy, dx), jj, ii
+
+
+def _ori_hist(windows, levels, H, W, x, y, lpos, sigma) -> torch.Tensor:
+    """(n, 36) histograms; ``windows(lp, rx, ry, R)`` gives each slot's
+    (mag, theta) window and its coordinates (:func:`_field_windows`)."""
     n = x.shape[0]
-    out = torch.zeros((n, ORI_NBINS), dtype=torch.float32,
-                      device=field.device)
-    pi2 = torch.tensor(M_PI2, dtype=torch.float32, device=field.device)
+    out = torch.zeros((n, ORI_NBINS), dtype=torch.float32, device=x.device)
+    pi2 = torch.tensor(M_PI2, dtype=torch.float32, device=x.device)
     radius = torch.round(3.0 * (ORI_WINFACTOR * sigma)).to(torch.int64)
     for e in _chunks(radius):
         xs, ys, sg, rad = x[e], y[e], sigma[e], radius[e]
-        lp = lpos[e].to(torch.int64).clamp(0, L2 // 2 - 1)
+        lp = lpos[e].to(torch.int64).clamp(0, levels - 1)
         rx = torch.round(xs).to(torch.int64)
         ry = torch.round(ys).to(torch.int64)
         R = max(int(rad.max()), 0)
-        mw, tw, jj, ii = _windows(field, lp, rx, ry, R)
+        mw, tw, jj, ii = windows(lp, rx, ry, R)
         # xmin/xmax gates (s_orientation.cu:114-117)
         xmin = torch.clamp(rx - rad, min=1)
         xmax = torch.clamp(rx + rad, max=W - 2)
@@ -84,6 +126,18 @@ def ori_hist_plain(field, x, y, lpos, sigma) -> torch.Tensor:
     return out
 
 
+def ori_hist_plain(field, x, y, lpos, sigma) -> torch.Tensor:
+    L2, H, W = field.shape
+    return _ori_hist(lambda *a: _field_windows(field, *a), L2 // 2, H, W, x,
+                     y, lpos, sigma)
+
+
+def ori_hist_stack_plain(stack, x, y, lpos, sigma) -> torch.Tensor:
+    L, H, W = stack.shape
+    return _ori_hist(lambda *a: _stack_windows(stack, *a), L, H, W, x, y,
+                     lpos, sigma)
+
+
 def desc_support(sigma: torch.Tensor, half: int) -> torch.Tensor:
     """Per-slot half-width R of the box that covers the descriptor's
     support |u|_inf < 2.5 (SBP units), at most the static window's half."""
@@ -91,18 +145,18 @@ def desc_support(sigma: torch.Tensor, half: int) -> torch.Tensor:
     return ((3.5355339 * sbp).to(torch.int64) + 2).clamp(max=half)
 
 
-def desc_loop_plain(field, x, y, lpos, sigma, ang, half: int):
-    L2, H, W = field.shape
+def _desc_loop(windows, levels, H, W, x, y, lpos, sigma, ang, half: int):
+    """(n, 128) descriptors from the windows of :func:`_ori_hist`."""
     n = x.shape[0]
-    out = torch.zeros((n, 4, 4, 8), dtype=torch.float32, device=field.device)
+    out = torch.zeros((n, 4, 4, 8), dtype=torch.float32, device=x.device)
     support = desc_support(sigma, half)
     for e in _chunks(support):
         xs, ys, sg, a = x[e], y[e], sigma[e], ang[e]
-        lp = lpos[e].to(torch.int64).clamp(0, L2 // 2 - 1)
+        lp = lpos[e].to(torch.int64).clamp(0, levels - 1)
         rx = torch.round(xs).to(torch.int64)
         ry = torch.round(ys).to(torch.int64)
         R = int(support[e].max())
-        mw, tw, jj, ii = _windows(field, lp, rx, ry, R)
+        mw, tw, jj, ii = windows(lp, rx, ry, R)
         sbp = torch.abs(DESC_MAGNIFY * sg)
         ok = sbp > 0.0
         safe = torch.where(ok, sbp, 1.0)[:, None, None]
@@ -132,7 +186,7 @@ def desc_loop_plain(field, x, y, lpos, sigma, ang, half: int):
         wys = [torch.clamp(1.0 - torch.abs(uy - (t - 1.5)), min=0.0)
                for t in range(4)]
         hist = torch.empty((len(e), 4, 4, 8), dtype=torch.float32,
-                           device=field.device)
+                           device=x.device)
         for b in range(8):
             a_b = torch.where(fo0 == b, lo, 0.0) + torch.where(fo1 == b, hi,
                                                                0.0)
@@ -144,6 +198,18 @@ def desc_loop_plain(field, x, y, lpos, sigma, ang, half: int):
     return out.reshape(n, 128)
 
 
+def desc_loop_plain(field, x, y, lpos, sigma, ang, half: int):
+    L2, H, W = field.shape
+    return _desc_loop(lambda *a: _field_windows(field, *a), L2 // 2, H, W,
+                      x, y, lpos, sigma, ang, half)
+
+
+def desc_loop_stack_plain(stack, x, y, lpos, sigma, ang, half: int):
+    L, H, W = stack.shape
+    return _desc_loop(lambda *a: _stack_windows(stack, *a), L, H, W, x, y,
+                      lpos, sigma, ang, half)
+
+
 def _slot_inputs(name, field, *vecs):
     dev = _lib.check_cuda(name, field)
     conv = []
@@ -152,43 +218,79 @@ def _slot_inputs(name, field, *vecs):
     return dev, conv
 
 
-def ori_hist(field: torch.Tensor, x, y, lpos, sigma) -> torch.Tensor:
-    """(n, 36) gradient-magnitude histograms of keypoints (x, y) at blur
-    level lpos (s_orientation.cu:104-162)."""
-    if field.dim() != 3 or field.shape[0] % 2 or field.dtype != torch.float32:
-        raise ValueError("ori_hist takes a (2L, H, W) float32 field")
-    if field.device.type == "cpu":
-        return ori_hist_plain(field, x, y, lpos, sigma)
+def _check_source(name: str, src: torch.Tensor, stack: bool) -> None:
+    if src.dim() != 3 or src.dtype != torch.float32 \
+            or (not stack and src.shape[0] % 2):
+        raise ValueError(f"{name} takes a "
+                         f"{'(L, H, W)' if stack else '(2L, H, W)'} float32 "
+                         f"{'stack' if stack else 'field'}")
+
+
+def _ori_hist_call(name, src, levels, x, y, lpos, sigma) -> torch.Tensor:
     dev, (x, y, lpos, sigma) = _slot_inputs(
-        "ori_hist", field, (x, torch.float32), (y, torch.float32),
+        name, src, (x, torch.float32), (y, torch.float32),
         (lpos, torch.int32), (sigma, torch.float32))
     n = int(x.shape[0])
     out = torch.empty((n, ORI_NBINS), dtype=torch.float32, device=dev)
     if n:
-        L2, H, W = field.shape
-        _lib.call("ori_hist", dev, field.data_ptr(), L2 // 2, H, W,
-                  x.data_ptr(), y.data_ptr(), lpos.data_ptr(),
-                  sigma.data_ptr(), n, out.data_ptr())
+        _, H, W = src.shape
+        _lib.call(name, dev, src.data_ptr(), levels, H, W, x.data_ptr(),
+                  y.data_ptr(), lpos.data_ptr(), sigma.data_ptr(), n,
+                  out.data_ptr())
     return out
+
+
+def _desc_loop_call(name, src, levels, x, y, lpos, sigma, ang,
+                    half) -> torch.Tensor:
+    dev, (x, y, lpos, sigma, ang) = _slot_inputs(
+        name, src, (x, torch.float32), (y, torch.float32),
+        (lpos, torch.int32), (sigma, torch.float32), (ang, torch.float32))
+    n = int(x.shape[0])
+    out = torch.empty((n, 128), dtype=torch.float32, device=dev)
+    if n:
+        _, H, W = src.shape
+        _lib.call(name, dev, src.data_ptr(), levels, H, W, x.data_ptr(),
+                  y.data_ptr(), lpos.data_ptr(), sigma.data_ptr(),
+                  ang.data_ptr(), n, int(half), out.data_ptr())
+    return out
+
+
+def ori_hist(field: torch.Tensor, x, y, lpos, sigma) -> torch.Tensor:
+    """(n, 36) gradient-magnitude histograms of keypoints (x, y) at blur
+    level lpos (s_orientation.cu:104-162), from the (2L, H, W) field."""
+    _check_source("ori_hist", field, stack=False)
+    if field.device.type == "cpu":
+        return ori_hist_plain(field, x, y, lpos, sigma)
+    return _ori_hist_call("ori_hist", field, field.shape[0] // 2, x, y, lpos,
+                          sigma)
+
+
+def ori_hist_stack(stack: torch.Tensor, x, y, lpos, sigma) -> torch.Tensor:
+    """:func:`ori_hist` from the (L, H, W) blurred stack (K10)."""
+    _check_source("ori_hist_stack", stack, stack=True)
+    if stack.device.type == "cpu":
+        return ori_hist_stack_plain(stack, x, y, lpos, sigma)
+    return _ori_hist_call("ori_hist_stack", stack, stack.shape[0], x, y,
+                          lpos, sigma)
 
 
 def desc_loop(field: torch.Tensor, x, y, lpos, sigma, ang,
               half: int) -> torch.Tensor:
     """(n, 128) unnormalised loop-mode descriptors in [ty][tx][bin] order
-    (s_desc_loop.cu:18-139); ``half`` is half the static window."""
-    if field.dim() != 3 or field.shape[0] % 2 or field.dtype != torch.float32:
-        raise ValueError("desc_loop takes a (2L, H, W) float32 field")
+    (s_desc_loop.cu:18-139) from the (2L, H, W) field; ``half`` is half
+    the static window."""
+    _check_source("desc_loop", field, stack=False)
     if field.device.type == "cpu":
         return desc_loop_plain(field, x, y, lpos, sigma, ang, half)
-    dev, (x, y, lpos, sigma, ang) = _slot_inputs(
-        "desc_loop", field, (x, torch.float32), (y, torch.float32),
-        (lpos, torch.int32), (sigma, torch.float32), (ang, torch.float32))
-    n = int(x.shape[0])
-    out = torch.empty((n, 128), dtype=torch.float32, device=dev)
-    if n:
-        L2, H, W = field.shape
-        _lib.call("desc_loop", dev, field.data_ptr(), L2 // 2, H, W,
-                  x.data_ptr(), y.data_ptr(), lpos.data_ptr(),
-                  sigma.data_ptr(), ang.data_ptr(), n, int(half),
-                  out.data_ptr())
-    return out
+    return _desc_loop_call("desc_loop", field, field.shape[0] // 2, x, y,
+                           lpos, sigma, ang, half)
+
+
+def desc_loop_stack(stack: torch.Tensor, x, y, lpos, sigma, ang,
+                    half: int) -> torch.Tensor:
+    """:func:`desc_loop` from the (L, H, W) blurred stack (K11)."""
+    _check_source("desc_loop_stack", stack, stack=True)
+    if stack.device.type == "cpu":
+        return desc_loop_stack_plain(stack, x, y, lpos, sigma, ang, half)
+    return _desc_loop_call("desc_loop_stack", stack, stack.shape[0], x, y,
+                           lpos, sigma, ang, half)

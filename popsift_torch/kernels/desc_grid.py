@@ -1,12 +1,24 @@
-"""K9: NoTile/IGrid descriptors from per-slot windows (csrc/desc_grid.cu).
+"""K9: NoTile/IGrid, K12: Grid and K13: ILoop descriptors from per-slot
+windows (csrc/desc_grid.cu).
 
-The JAX package computes this step as XLA (ops/descriptors.py:
-grid_descriptors_windowed and its matmul form ..._mm); the reference runs
-it as a CUDA kernel (s_desc_notile.cu:31-129).  The plain version here is
-the arithmetic of grid_descriptors_windowed, batched over the slots:
-the rotated 40x40 sample grid, bilinear samples inside each slot's
-(win_y, 128) window in window-local coordinates, the rotated gradient,
-the Gaussian weight, two orientation bins and the two tile contractions.
+The JAX package computes these steps as XLA (ops/descriptors.py:
+grid_descriptors_windowed, grid_rounded_descriptors_windowed and
+iloop_descriptors_windowed, and their matmul forms ``..._mm``); the
+reference runs them as CUDA kernels (s_desc_notile.cu:31-129,
+s_desc_grid.cu:18-121, s_desc_iloop.cu:18-130).  The plain versions here
+are the arithmetic of the JAX gather forms, batched over the slots.
+
+* NoTile/IGrid: the rotated 40x40 sample grid, bilinear samples inside
+  each slot's (win_y, 128) window in window-local coordinates, the rotated
+  gradient, the Gaussian weight, two orientation bins and the two tile
+  contractions.
+* Grid (:func:`grid_rounded_body`): per tile a rotated 16x16 grid rounded
+  to pixels, weights recomputed there, integer central differences.
+* ILoop (:func:`iloop_body`): per tile an axis-aligned 32x32 grid over the
+  rotated tile's bounding box, bilinear rotated-derivative gradients.
+
+The two bodies take a sampler, so the whole-plane forms in
+ops/descriptors.py run the same arithmetic on the octave's plane.
 """
 
 from __future__ import annotations
@@ -18,6 +30,10 @@ from ..constants import DESC_MAGNIFY, M_4RPI, M_PI2
 from . import _lib
 
 _CHUNK = 256
+# rows per plain-version chunk of the Grid (4096 samples a row) and ILoop
+# (16384 samples a row) forms
+CHUNK_GRID = 64
+CHUNK_ILOOP = 16
 
 
 def _grid_steps() -> np.ndarray:
@@ -121,29 +137,218 @@ def desc_grid_plain(wins, x, y, x0f, y0f, sigma, ang, w: int, h: int,
     return out
 
 
+def _tile_centres(n_like: torch.Tensor):
+    """(1, 16, 1) tile-centre offsets ix - 1.5, iy - 1.5 of tile
+    t = 4 iy + ix (s_desc_loop.cu:57-58), the [ty][tx] output order."""
+    offs = torch.arange(4, dtype=torch.float32, device=n_like.device) - 1.5
+    return offs.repeat(4)[None, :, None], offs.repeat_interleave(4)[None, :,
+                                                                    None]
+
+
+def _wrap_2pi(th: torch.Tensor) -> torch.Tensor:
+    th = torch.where(th < 0.0, th + M_PI2, th)
+    return torch.where(th >= M_PI2, th - M_PI2, th)
+
+
+def tile_bins(th: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
+    """(n, 128) per-tile sums of every sample's two orientation bins from
+    th in [0, 2 pi) and the sample weight, both (n, 16, samples)."""
+    tth = th * M_4RPI
+    fo = torch.floor(tth)
+    do0 = tth - fo
+    fo0 = fo.to(torch.int32).clamp(0, 7)
+    fo1 = (fo0 + 1) & 7
+    lo = (1.0 - do0) * wgt
+    hi = do0 * wgt
+    D = torch.stack([(torch.where(fo0 == b, lo, 0.0)
+                      + torch.where(fo1 == b, hi, 0.0)).sum(dim=-1)
+                     for b in range(8)], dim=-1)
+    return D.reshape(th.shape[0], 128)
+
+
+def grid_rounded_body(tapi, x, y, sigma, ang, w: int, h: int):
+    """(n, 128) Grid descriptors (popsift_tpu ops/descriptors.py:
+    _grid_rounded_body; s_desc_grid.cu:18-121) given ``tapi(yy, xx)``, the
+    values at integer coordinates already clipped to the (h, w) image.
+    Each tile samples its own rotated 16x16 grid, every sample rounded to
+    the nearest pixel (half to even, as jnp.round), the tile and Gaussian
+    weights recomputed at the rounded pixel and the sample skipped where
+    the triangle weight goes negative (:86); the gradient is the
+    axis-aligned central difference there, de-rotated by the angle."""
+    sbp = torch.abs(DESC_MAGNIFY * sigma)
+    ok = (sbp > 0.0)[:, None, None]
+    safe = torch.where(sbp > 0.0, sbp, 1.0)[:, None, None]
+    c = torch.cos(ang)[:, None, None]
+    s = torch.sin(ang)[:, None, None]
+    sb = sbp[:, None, None]
+    # local 16x16 grid in tile units, (k + 0.5) / 8 - 1 (s_desc_grid.cu:69);
+    # sample j = 16 yd + xd
+    k = (torch.arange(16, dtype=torch.float32, device=x.device) + 0.5) \
+        / 8.0 - 1.0
+    u = k.repeat(16)
+    v = k.repeat_interleave(16)
+    pixox = c * u - s * v
+    pixoy = c * v + s * u
+    ox, oy = _tile_centres(x)
+    ptx = (c * sb) * ox - (s * sb) * oy + x[:, None, None]
+    pty = (c * sb) * oy + (s * sb) * ox + y[:, None, None]
+    px = torch.round(ptx + pixox * sb)
+    py = torch.round(pty + pixoy * sb)
+    rx = (px - ptx) / safe
+    ry = (py - pty) / safe
+    nx = c * rx + s * ry
+    ny = c * ry - s * rx
+    ix0 = px.to(torch.int64).clamp(0, w - 1)
+    iy0 = py.to(torch.int64).clamp(0, h - 1)
+    gdx = tapi(iy0, (ix0 + 1).clamp(max=w - 1)) \
+        - tapi(iy0, (ix0 - 1).clamp(min=0))
+    gdy = tapi((iy0 + 1).clamp(max=h - 1), ix0) \
+        - tapi((iy0 - 1).clamp(min=0), ix0)
+    mod = torch.hypot(gdx, gdy)
+    th = _wrap_2pi(torch.atan2(gdy, gdx) - ang[:, None, None])
+    dnx = nx + ox
+    dny = ny + oy
+    ww = torch.exp(-(dnx * dnx + dny * dny) / 8.0)
+    wx = 1.0 - torch.abs(nx)
+    wy = 1.0 - torch.abs(ny)
+    good = (wx >= 0.0) & (wy >= 0.0) & ok
+    return tile_bins(th, torch.where(good, ww * wx * wy * mod, 0.0))
+
+
+def iloop_body(bil, x, y, sigma, ang):
+    """(n, 128) ILoop descriptors (popsift_tpu ops/descriptors.py:
+    _iloop_body; s_desc_iloop.cu:18-130) given the bilinear sampler
+    ``bil(px, py)``: per tile a fixed 32x32 axis-aligned grid spanning the
+    rotated tile's bounding box (offsets -bsz + k bsz / 16 in SBP units),
+    rotated-derivative gradients, no angle subtraction."""
+    sbp = torch.abs(DESC_MAGNIFY * sigma)
+    ok = (sbp > 0.0)[:, None, None]
+    cos_t = torch.cos(ang)
+    sin_t = torch.sin(ang)
+    bsz = (torch.abs(cos_t) + torch.abs(sin_t))[:, None]
+    kk = torch.arange(32, dtype=torch.float32, device=x.device)
+    d = -bsz + kk * bsz / 16.0
+    # sample j = 32 row + column
+    dxg = d.repeat(1, 32)[:, None, :]
+    dyg = d.repeat_interleave(32, dim=1)[:, None, :]
+    c = cos_t[:, None, None]
+    s = sin_t[:, None, None]
+    sb = sbp[:, None, None]
+    nx = c * dxg + s * dyg
+    ny = c * dyg - s * dxg
+    nn_ok = (torch.abs(nx) < 1.0) & (torch.abs(ny) < 1.0)
+    ox, oy = _tile_centres(x)
+    ptx = (c * sb) * ox - (s * sb) * oy
+    pty = (c * sb) * oy + (s * sb) * ox
+    jj = (x[:, None, None] + ptx) + dxg * sb
+    ii = (y[:, None, None] + pty) + dyg * sb
+    gdx = bil(jj + c, ii + s) - bil(jj - c, ii - s)
+    gdy = bil(jj - s, ii + c) - bil(jj + s, ii - c)
+    mod = torch.hypot(gdx, gdy)
+    th = _wrap_2pi(torch.atan2(gdy, gdx))
+    dnx = nx + ox
+    dny = ny + oy
+    ww = torch.exp(-(dnx * dnx + dny * dny) / 8.0)
+    wgt = torch.where(nn_ok & ok, ww * (1.0 - torch.abs(nx))
+                      * (1.0 - torch.abs(ny)) * mod, 0.0)
+    return tile_bins(th, wgt)
+
+
+def _window_taps(wflat, x0i, y0i, win_y: int):
+    """Integer taps of the flattened (n, win_y * 128) windows at image
+    coordinates, clipped to the window (grid_rounded_descriptors_windowed
+    of the JAX package)."""
+    def tapi(yy, xx):
+        xr = (xx - x0i).clamp(0, 127)
+        yr = (yy - y0i).clamp(0, win_y - 1)
+        idx = (yr * 128 + xr).reshape(wflat.shape[0], -1)
+        return torch.gather(wflat, 1, idx).reshape(xx.shape)
+    return tapi
+
+
+def desc_grid_rounded_plain(wins, x, y, x0f, y0f, sigma, ang, w: int,
+                            h: int) -> torch.Tensor:
+    n, win_y, _ = wins.shape
+    out = torch.empty((n, 128), dtype=torch.float32, device=wins.device)
+    for s0 in range(0, n, CHUNK_GRID):
+        e = slice(s0, s0 + CHUNK_GRID)
+        tapi = _window_taps(wins[e].reshape(len(x[e]), -1),
+                            x0f[e].to(torch.int64)[:, None, None],
+                            y0f[e].to(torch.int64)[:, None, None], win_y)
+        out[e] = grid_rounded_body(tapi, x[e], y[e], sigma[e], ang[e], w, h)
+    return out
+
+
+def desc_iloop_plain(wins, x, y, x0f, y0f, sigma, ang, w: int,
+                     h: int) -> torch.Tensor:
+    n, win_y, _ = wins.shape
+    out = torch.empty((n, 128), dtype=torch.float32, device=wins.device)
+    for s0 in range(0, n, CHUNK_ILOOP):
+        e = slice(s0, s0 + CHUNK_ILOOP)
+        ox = x0f[e][:, None, None]
+        oy = y0f[e][:, None, None]
+        lims = (0.0 - ox, (w - 1.0) - ox, 0.0 - oy, (h - 1.0) - oy)
+        wflat = wins[e].reshape(len(x[e]), -1)
+
+        def bil(px, py):
+            return _bilinear_win(wflat, px - ox, py - oy, win_y, *lims)
+        out[e] = iloop_body(bil, x[e], y[e], sigma[e], ang[e])
+    return out
+
+
+def _check_windows(name: str, wins: torch.Tensor) -> None:
+    if wins.dim() != 3 or wins.shape[2] != 128 or wins.shape[1] % 4 \
+            or wins.dtype != torch.float32:
+        raise ValueError(f"{name} takes (n, win_y, 128) float32 windows "
+                         "with win_y a multiple of 4")
+
+
+def _rows_call(name: str, wins, w: int, h: int, rows, tables=()):
+    """Launch ``name`` on (n, win_y, 128) windows with the per-row vectors
+    ``rows`` (x, y, x0, y0, sigma, angle) and optional device tables."""
+    dev = _lib.check_cuda(name, wins)
+    rows = [v.to(device=dev, dtype=torch.float32).contiguous()
+            for v in (*rows, *tables)]
+    n, win_y, _ = wins.shape
+    out = torch.empty((n, 128), dtype=torch.float32, device=dev)
+    if n:
+        ptrs = [v.data_ptr() for v in rows]
+        _lib.call(name, dev, wins.data_ptr(), win_y, *ptrs[:6], n, w, h,
+                  *ptrs[6:], out.data_ptr())
+    return out
+
+
 def desc_grid(wins: torch.Tensor, x, y, x0f, y0f, sigma, ang, w: int,
               h: int, desc_gauss: torch.Tensor,
               desc_tile: torch.Tensor) -> torch.Tensor:
     """(n, 128) unnormalised NoTile/IGrid descriptors of keypoints (x, y)
     at scale ``sigma`` and angle ``ang`` from their (n, win_y, 128)
     windows, whose origins in the (h, w) octave are (x0f, y0f)."""
-    if wins.dim() != 3 or wins.shape[2] != 128 or wins.shape[1] % 4 \
-            or wins.dtype != torch.float32:
-        raise ValueError("desc_grid takes (n, win_y, 128) float32 windows "
-                         "with win_y a multiple of 4")
+    _check_windows("desc_grid", wins)
     if wins.device.type == "cpu":
         return desc_grid_plain(wins, x, y, x0f, y0f, sigma, ang, w, h,
                                desc_gauss, desc_tile)
-    dev = _lib.check_cuda("desc_grid", wins)
-    x, y, x0f, y0f, sigma, ang, desc_gauss, desc_tile = (
-        v.to(device=dev, dtype=torch.float32).contiguous()
-        for v in (x, y, x0f, y0f, sigma, ang, desc_gauss, desc_tile))
-    n, win_y, _ = wins.shape
-    out = torch.empty((n, 128), dtype=torch.float32, device=dev)
-    if n:
-        _lib.call("desc_grid", dev, wins.data_ptr(), win_y, x.data_ptr(),
-                  y.data_ptr(), x0f.data_ptr(), y0f.data_ptr(),
-                  sigma.data_ptr(), ang.data_ptr(), n, w, h,
-                  desc_gauss.data_ptr(), desc_tile.data_ptr(),
-                  out.data_ptr())
-    return out
+    return _rows_call("desc_grid", wins, w, h, (x, y, x0f, y0f, sigma, ang),
+                      (desc_gauss, desc_tile))
+
+
+def desc_grid_rounded(wins: torch.Tensor, x, y, x0f, y0f, sigma, ang,
+                      w: int, h: int) -> torch.Tensor:
+    """(n, 128) unnormalised Grid descriptors (K12); arguments as
+    :func:`desc_grid` without the two tables."""
+    _check_windows("desc_grid_rounded", wins)
+    if wins.device.type == "cpu":
+        return desc_grid_rounded_plain(wins, x, y, x0f, y0f, sigma, ang, w,
+                                       h)
+    return _rows_call("desc_grid_rounded", wins, w, h,
+                      (x, y, x0f, y0f, sigma, ang))
+
+
+def desc_iloop(wins: torch.Tensor, x, y, x0f, y0f, sigma, ang, w: int,
+               h: int) -> torch.Tensor:
+    """(n, 128) unnormalised ILoop descriptors (K13); arguments as
+    :func:`desc_grid` without the two tables."""
+    _check_windows("desc_iloop", wins)
+    if wins.device.type == "cpu":
+        return desc_iloop_plain(wins, x, y, x0f, y0f, sigma, ang, w, h)
+    return _rows_call("desc_iloop", wins, w, h, (x, y, x0f, y0f, sigma, ang))

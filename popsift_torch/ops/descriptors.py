@@ -1,14 +1,20 @@
 """Descriptors of the loop and grid families and their normalisation
 (popsift_tpu/ops/descriptors.py).
 
-Loop descriptors read the gradient field (K6).  The grid family (NoTile
-and IGrid, which compute the same numbers) samples the blurred stack on a
-rotated 40x40 grid: :func:`grid_descriptors_windowed` gathers one window
-per row (K8) and computes the descriptor from it (K9);
-:func:`grid_descriptors` samples the whole plane and is kept for the tests
-that hold the windowed form to it.  The JAX package's matmul form
-(grid_descriptors_windowed_mm) recast the sampling for the TPU's matrix
-unit; K9 computes the same function directly and it is not ported.
+Loop descriptors read the gradient field (K6), or the blurred stack (K11)
+on the stack-kernel path.  The sampling modes read the blurred stack
+through one window per row (K8) and compute each descriptor from it:
+NoTile and IGrid, which compute the same numbers, on a rotated 40x40 grid
+(:func:`grid_descriptors_windowed`, K9); Grid on rotated 16x16 grids per
+tile rounded to pixels (:func:`grid_rounded_descriptors_windowed`, K12);
+ILoop on axis-aligned 32x32 grids per tile
+(:func:`iloop_descriptors_windowed`, K13).  The whole-plane forms
+(:func:`grid_descriptors`, :func:`grid_rounded_descriptors`,
+:func:`iloop_descriptors`) sample the octave's plane instead and are kept
+for the tests that hold the windowed forms to them.  The JAX package's
+matmul forms (``..._mm``) recast the sampling for the TPU's matrix unit;
+K9, K12 and K13 compute the same functions directly and the matmul forms
+are not ported.
 """
 
 from __future__ import annotations
@@ -18,10 +24,12 @@ import math
 import torch
 
 from ..constants import DESC_MAGNIFY
-from ..kernels.binwin import desc_loop
-from ..kernels.desc_grid import (_grid_steps,  # noqa: F401
-                                 _tile_weight_matrix, desc_grid,
-                                 grid_histograms, grid_points)
+from ..kernels.binwin import desc_loop, desc_loop_stack
+from ..kernels.desc_grid import (CHUNK_GRID, CHUNK_ILOOP,  # noqa: F401
+                                 _grid_steps, _tile_weight_matrix, desc_grid,
+                                 desc_grid_rounded, desc_iloop,
+                                 grid_histograms, grid_points,
+                                 grid_rounded_body, iloop_body)
 from ..kernels.windows import gather_windows_exact
 from .orientation import max_sigma
 
@@ -33,9 +41,15 @@ def desc_window_size(sigma0: float, levels: int) -> int:
     return (win + 7) // 8 * 8
 
 
-def loop_descriptors(field: torch.Tensor, xpos, ypos, lpos, sigma, ang,
-                     win: int) -> torch.Tensor:
-    """(n, 128) unnormalised descriptors in [ty][tx][bin] order (K6)."""
+def loop_descriptors(field, xpos, ypos, lpos, sigma, ang, win: int,
+                     stack=None) -> torch.Tensor:
+    """(n, 128) unnormalised descriptors in [ty][tx][bin] order from the
+    (2L, H, W) ``field`` (K6), or from the (L, H, W) ``stack`` (K11) when
+    one is given (popsift_tpu ops/descriptors.py:89-94); ``field`` may
+    then be None.  The caller passes a stack only on the stack-kernel
+    path."""
+    if stack is not None:
+        return desc_loop_stack(stack, xpos, ypos, lpos, sigma, ang, win // 2)
     return desc_loop(field, xpos, ypos, lpos, sigma, ang, win // 2)
 
 
@@ -82,25 +96,98 @@ def grid_descriptors(stack: torch.Tensor, xpos, ypos, lpos, sigma, ang,
     return grid_histograms(dx, dy, ok, desc_gauss, desc_tile)
 
 
-def grid_descriptors_windowed(stack: torch.Tensor, xpos, ypos, lpos, sigma,
-                              ang, win: int, desc_gauss, desc_tile,
-                              valid=None) -> torch.Tensor:
-    """(n, 128) NoTile/IGrid descriptors through per-row windows: K8
-    gathers a (win_y, 128) window of the unpadded (L, H, W) stack at
-    column round(x) - win/2 and row 8 floor((round(y) - win/2) / 8), with
-    clamp addressing; K9 samples it in window-local coordinates.
-    ``valid`` (n,) bool zeroes rows."""
-    L, h, w = stack.shape
+def _row_windows(stack: torch.Tensor, xpos, ypos, lpos, win: int):
+    """K8's (win_y, 128) window of each row of the unpadded (L, H, W)
+    stack, at column round(x) - win/2 and row 8 floor((round(y) - win/2) /
+    8), with clamp addressing.  Returns (windows, x0, ya) with the origins
+    as float32."""
+    L = stack.shape[0]
     x0 = torch.round(xpos).to(torch.int32) - win // 2
     y0 = torch.round(ypos).to(torch.int32) - win // 2
     lp = lpos.to(torch.int32).clamp(0, L - 1)
     wins, ya = gather_windows_exact(stack, lp, y0, x0, win)
-    desc = desc_grid(wins, xpos, ypos, x0.to(torch.float32),
-                     ya.to(torch.float32), sigma, ang, w, h, desc_gauss,
-                     desc_tile)
-    if valid is not None:
-        desc = torch.where(valid[:, None], desc, 0.0)
-    return desc
+    return wins, x0.to(torch.float32), ya.to(torch.float32)
+
+
+def _zero_invalid(desc: torch.Tensor, valid) -> torch.Tensor:
+    if valid is None:
+        return desc
+    return torch.where(valid[:, None], desc, 0.0)
+
+
+def grid_descriptors_windowed(stack: torch.Tensor, xpos, ypos, lpos, sigma,
+                              ang, win: int, desc_gauss, desc_tile,
+                              valid=None) -> torch.Tensor:
+    """(n, 128) NoTile/IGrid descriptors through per-row windows: K8's
+    window (:func:`_row_windows`), then K9 samples it in window-local
+    coordinates.  ``valid`` (n,) bool zeroes rows."""
+    _, h, w = stack.shape
+    wins, x0, ya = _row_windows(stack, xpos, ypos, lpos, win)
+    return _zero_invalid(desc_grid(wins, xpos, ypos, x0, ya, sigma, ang, w,
+                                   h, desc_gauss, desc_tile), valid)
+
+
+def grid_rounded_descriptors_windowed(stack: torch.Tensor, xpos, ypos, lpos,
+                                      sigma, ang, win: int,
+                                      valid=None) -> torch.Tensor:
+    """(n, 128) Grid descriptors through K8's windows and K12.  Integer
+    taps are clipped to the image first and then to the window (popsift_tpu
+    ops/descriptors.py:908-958); a clipped tap always lands inside the
+    window, since clipping only moves a sample toward the keypoint."""
+    _, h, w = stack.shape
+    wins, x0, ya = _row_windows(stack, xpos, ypos, lpos, win)
+    return _zero_invalid(desc_grid_rounded(wins, xpos, ypos, x0, ya, sigma,
+                                           ang, w, h), valid)
+
+
+def iloop_descriptors_windowed(stack: torch.Tensor, xpos, ypos, lpos, sigma,
+                               ang, win: int, valid=None) -> torch.Tensor:
+    """(n, 128) ILoop descriptors through K8's windows and K13, with the
+    image bounds in window coordinates as for NoTile (popsift_tpu
+    ops/descriptors.py:1039-1088)."""
+    _, h, w = stack.shape
+    wins, x0, ya = _row_windows(stack, xpos, ypos, lpos, win)
+    return _zero_invalid(desc_iloop(wins, xpos, ypos, x0, ya, sigma, ang, w,
+                                    h), valid)
+
+
+def _chunked(body, n: int, chunk: int, device) -> torch.Tensor:
+    out = torch.empty((n, 128), dtype=torch.float32, device=device)
+    for s in range(0, n, chunk):
+        out[s:s + chunk] = body(slice(s, s + chunk))
+    return out
+
+
+def grid_rounded_descriptors(stack: torch.Tensor, xpos, ypos, lpos, sigma,
+                             ang, valid=None) -> torch.Tensor:
+    """(n, 128) Grid descriptors over whole-plane integer taps."""
+    L, h, w = stack.shape
+    lp = lpos.to(torch.int64).clamp(0, L - 1)
+    flat = stack.reshape(-1)
+
+    def body(e):
+        row = (lp[e] * h)[:, None, None]
+
+        def tapi(yy, xx):
+            return flat[(row + yy) * w + xx]
+        return grid_rounded_body(tapi, xpos[e], ypos[e], sigma[e], ang[e],
+                                 w, h)
+    return _zero_invalid(_chunked(body, xpos.shape[0], CHUNK_GRID,
+                                  stack.device), valid)
+
+
+def iloop_descriptors(stack: torch.Tensor, xpos, ypos, lpos, sigma, ang,
+                      valid=None) -> torch.Tensor:
+    """(n, 128) ILoop descriptors over whole-plane bilinear samples."""
+    L = stack.shape[0]
+    lp = lpos.to(torch.int64).clamp(0, L - 1)
+
+    def body(e):
+        def bil(px, py):
+            return _bilinear(stack, lp[e], px, py)
+        return iloop_body(bil, xpos[e], ypos[e], sigma[e], ang[e])
+    return _zero_invalid(_chunked(body, xpos.shape[0], CHUNK_ILOOP,
+                                  stack.device), valid)
 
 
 def normalize_rootsift(desc: torch.Tensor, norm_multi: int) -> torch.Tensor:

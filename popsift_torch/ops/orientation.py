@@ -1,8 +1,9 @@
 """Orientation assignment (popsift_tpu/ops/orientation.py).
 
-36-bin gradient histograms per extremum (K5), VLFeat smoothing, quadratic
-peak refinement and the acceptance of up to 4 peaks of at least 0.8 of the
-highest (s_orientation.cu:75-259).
+36-bin gradient histograms per extremum (K5 from the gradient field, or
+K10 from the blurred stack on the stack-kernel path), VLFeat smoothing,
+quadratic peak refinement and the acceptance of up to 4 peaks of at least
+0.8 of the highest (s_orientation.cu:75-259).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from ..constants import M_PI2, ORI_NBINS, ORI_WINFACTOR, \
     ORIENTATION_MAX_COUNT
-from ..kernels.binwin import ori_hist
+from ..kernels.binwin import ori_hist, ori_hist_stack
 
 
 def max_sigma(sigma0: float, levels: int) -> float:
@@ -76,11 +77,18 @@ def peaks_from_hist(hist: torch.Tensor,
     return num_ori, torch.where(accept, th, 0.0)
 
 
-def assign_orientations(field: torch.Tensor, xpos, ypos, lpos, sigma):
+def assign_orientations(field, xpos, ypos, lpos, sigma, stack=None):
     """Up to 4 orientations per extremum: (num_ori (n,), angles (n, 4))
-    in descending peak order."""
+    in descending peak order.  The histograms come from the (2L, H, W)
+    ``field`` (K5), or from the (L, H, W) ``stack`` (K10) when one is
+    given (popsift_tpu ops/orientation.py:151-157); ``field`` may then be
+    None.  The caller passes a stack only on the stack-kernel path."""
+    use_stack = stack is not None
+    src = stack if use_stack else field
     if xpos.shape[0] == 0:
-        return (torch.zeros(0, dtype=torch.int32, device=field.device),
+        return (torch.zeros(0, dtype=torch.int32, device=src.device),
                 torch.zeros((0, ORIENTATION_MAX_COUNT), dtype=torch.float32,
-                            device=field.device))
-    return peaks_from_hist(ori_hist(field, xpos, ypos, lpos, sigma))
+                            device=src.device))
+    hist = (ori_hist_stack if use_stack else ori_hist)(src, xpos, ypos, lpos,
+                                                       sigma)
+    return peaks_from_hist(hist)

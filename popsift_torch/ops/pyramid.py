@@ -159,14 +159,17 @@ def build_octave(src: torch.Tensor, octave: int, dims, levels: int,
 
 def octave_outputs(src: torch.Tensor, octave: int, dims, levels: int,
                    gauss: GaussInfo, sift_mode: SiftMode,
-                   upscale_factor: float, full_stack: bool):
+                   upscale_factor: float, full_stack: bool,
+                   need_field: bool = True):
     """Scale space, DoG and gradient field of one octave, the counterpart
     of one octave of popsift_tpu's ``build_pyramid_dogs_fields``.  ``src``
     is the [0, 1] input image for octave 0 and level L-3 of the octave
     before otherwise.  Returns (stack, down, dog, field): ``stack`` is
     None on a chain octave when ``full_stack`` is False (the loop
     descriptors never read it), and ``down`` is level L-3, the next
-    octave's source."""
+    octave's source.  A chain octave always has K7's field; a per-level
+    octave has K2's only with ``need_field`` (nothing reads it on the
+    stack-kernel path), and None otherwise."""
     w, h = dims[octave]
     L = levels + 3
     lvl0 = octave_level0(src, octave, dims, gauss, sift_mode,
@@ -180,4 +183,5 @@ def octave_outputs(src: torch.Tensor, octave: int, dims, levels: int,
             return stack, stack[L - PREV_LEVEL], dog, field
         return None, stack[0], dog, field
     stack, dog = per_level_chain(lvl0, levels, gauss)
-    return stack, stack[L - PREV_LEVEL], dog, grad_field(stack)
+    field = grad_field(stack) if need_field else None
+    return stack, stack[L - PREV_LEVEL], dog, field

@@ -3,7 +3,9 @@
 ``PopSift.enqueue`` copies the image, queues a :class:`SiftJob` and
 returns it at once; one worker thread extracts the jobs in order on the
 pipeline's device and fulfils each job's future, errors included
-(popsift.cpp:306-383).
+(popsift.cpp:306-383).  A job takes the stack-kernel path (K10 and K11,
+``POPSIFT_TPU_STACK_KERNELS``) as the switch stands when the worker starts
+that job, not when it was enqueued.
 """
 
 from __future__ import annotations

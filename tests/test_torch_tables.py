@@ -187,7 +187,8 @@ def test_port_imports_neither_jax_nor_popsift_tpu():
             "popsift_torch.pipeline, popsift_torch.tables, "
             "popsift_torch.kernels.blur, popsift_torch.kernels.grad, "
             "popsift_torch.kernels.detect, popsift_torch.kernels.refine, "
-            "popsift_torch.kernels.binwin\n"
+            "popsift_torch.kernels.binwin, popsift_torch.kernels.desc_grid, "
+            "popsift_torch.ops.descriptors\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'popsift_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -244,6 +245,16 @@ def test_wrappers_take_the_kernel_path_off_the_cpu(monkeypatch):
         lambda: desc_grid.desc_grid(meta(3, 8, 128), *(meta(3)
                                                       for _ in range(6)),
                                     32, 16, meta(40, 40), meta(16)),
+        lambda: binwin.ori_hist_stack(meta(6, 16, 32), meta(3), meta(3),
+                                      meta(3, dtype=torch.int32), meta(3)),
+        lambda: binwin.desc_loop_stack(meta(6, 16, 32), meta(3), meta(3),
+                                       meta(3, dtype=torch.int32), meta(3),
+                                       meta(3), 56),
+        lambda: desc_grid.desc_grid_rounded(meta(3, 8, 128),
+                                            *(meta(3) for _ in range(6)),
+                                            32, 16),
+        lambda: desc_grid.desc_iloop(meta(3, 8, 128),
+                                     *(meta(3) for _ in range(6)), 32, 16),
     ]
     for c in calls:
         with pytest.raises(Refused):
@@ -257,9 +268,7 @@ def test_wrappers_take_the_kernel_path_off_the_cpu(monkeypatch):
     lambda c: c.set_gauss_mode("fixed9"),
     lambda c: c.set_gauss_mode("vlfeat-direct"),
     lambda c: c.set_scaling_mode(tcfg.ScalingMode.SCALE_DIRECT),
-    lambda c: c.set_desc_mode("grid"),
     lambda c: c.set_filter_max_extrema(100),
-    lambda c: c.set_desc_mode("iloop"),
 ])
 def test_unimplemented_modes_raise(mutate):
     cfg = tcfg.Config()
