@@ -8,18 +8,21 @@ JAX nor popsift_tpu.  In order it:
 
 1. prints the card's name and power limit, the torch and CUDA versions, and
    builds the kernel library from popsift_torch/csrc (printing the build
-   time and what ptxas reports);
+   time, and what ptxas reports for K7 and K6/K11);
 2. checks every kernel against its plain PyTorch version on the card, on
    the inputs the main paths give it for a 1080p scene: the octave-0
-   levels, DoG and stack for the blur, octave-chain (both emit modes, and
-   against the per-level kernels), gradient and detection kernels, and
-   the real candidates and keypoint rows of the scene's busiest octave for
-   refinement, orientation, loop descriptors (from the field and from the
-   stack; the stack kernels also bit for bit against the field kernels on
-   K2's field, at octave 0 and at the busiest octave), the window gather
-   (both call shapes) and the NoTile, Grid and ILoop descriptors; it times
-   both with CUDA events (median of repeated calls) beside the kernel's
-   bound;
+   levels, DoG and stack for the blur, the octave chain (both emit modes,
+   and bit for bit against the per-level kernels, at every octave that
+   takes it), gradient and detection kernels, and the real candidates and
+   keypoint rows of the scene's busiest octave for refinement,
+   orientation, loop descriptors (from the field and from the stack; the
+   stack kernels also bit for bit against the field kernels on K2's field,
+   at octave 0, at the busiest octave and at the octave of the largest
+   sigma), the window gather (both call shapes) and the NoTile, Grid and
+   ILoop descriptors;
+   it times both between CUDA events (the median of repeated calls), the
+   kernel also by its device time (torch.profiler, the mean), beside the
+   kernel's bound;
 3. drives the default path, PopSift(Config()).enqueue(...).get(), on four
    distinct 1080p scenes with the launch counts reset just before, fails
    if a kernel of that path was not launched or the features per image
@@ -46,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -122,7 +126,9 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median time of one call of ``fn`` on the current stream."""
+    """Median time of one call of ``fn`` on the current stream, between two
+    CUDA events: the wrapper's host time before its launch included, as a
+    caller meets it."""
     import torch
     for _ in range(warmup):
         fn()
@@ -138,6 +144,54 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+# kernels one call of a library entry launches, where it is not one
+ENTRY_KERNELS = {"sep_blur": 2}
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Mean device time of the library kernels one call of ``fn``
+    launches: their durations in torch.profiler's CUDA activity over
+    ``reps`` calls, without the host time that CUDA events around a call
+    count.  The library's kernels are the records named in an anonymous
+    namespace at the top level; each call must give as many as the
+    wrappers count launches (two kernels for K1).  The profiler now and
+    then loses activity: a profile with any other number of records is
+    taken again, and after three such profiles this raises."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from popsift_torch.kernels import _lib
+    before = _lib.launches()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    after = _lib.launches()
+    launched = sum((after[k] - before[k]) * ENTRY_KERNELS.get(k, 1)
+                   for k in after)
+    require(launched > 0 and launched % warmup == 0,
+            f"device_ms: {launched} launches in {warmup} calls")
+    want = reps * launched // warmup
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and e.name.removeprefix("void ").startswith(
+                     "(anonymous namespace)::")]
+        if len(spans) == want:
+            return sum(spans) / reps / 1e3
+    raise AssertionError(f"device_ms: the profiler recorded {len(spans)} of "
+                         f"{want} launches, three times")
+
+
+def kernel_ms(fn, reps: int = 20) -> tuple[float, float]:
+    """A kernel's two times: between CUDA events (the median) and on the
+    device (the mean)."""
+    return cuda_ms(fn, reps), device_ms(fn, reps)
+
+
 def ulps(a, b) -> int:
     """Largest distance in units in the last place between two float32
     tensors of the same shape."""
@@ -150,6 +204,30 @@ def ulps(a, b) -> int:
     if a.numel() == 0:
         return 0
     return int((ordered(a) - ordered(b)).abs().max())
+
+
+def ptxas_report(log: str, names) -> None:
+    """What ptxas says (registers, shared memory, spills) of the kernels
+    named, and every error line of the build."""
+    kernel = None
+    for line in log.splitlines():
+        if "error" in line.lower():
+            print("  ptxas: " + line.strip(), flush=True)
+        m = re.search(r"(?:entry function|properties for) '?(_Z\w+)", line)
+        if m:
+            # a mangled name holds <length><name>, then I<arguments>E for
+            # a template (ILb1 for kStack = true)
+            kernel = None
+            for name in names:
+                at = m.group(1).find(f"{len(name)}{name}")
+                if at >= 0:
+                    rest = m.group(1)[at + len(str(len(name))) + len(name):]
+                    kernel = name + ("<stack>" if rest.startswith("ILb1")
+                                     else "")
+            continue
+        if kernel and ("registers" in line or "spill" in line):
+            print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}",
+                  flush=True)
 
 
 def max_abs(a, b) -> float:
@@ -214,30 +292,33 @@ class Table:
         self.rows = {}
         self.subs = {}
 
-    def add(self, name, label, err, ms, plain_ms, nbytes, nops,
+    def add(self, name, label, err, times, plain_ms, nbytes, nops,
             library_ms=None, sub=None):
-        """One kernel's row; ``sub`` names a second call shape, kept inside
-        the row of ``name`` (added before it) under that key."""
+        """One kernel's row; ``times`` is :func:`kernel_ms`'s pair: ``ms``
+        between CUDA events and ``device_ms``.  ``sub`` names a second call
+        shape, kept inside the row of ``name`` (added before it) under that
+        key."""
+        ms, dms = times
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
         lib = "null" if library_ms is None else f"{library_ms:.6f}"
         print(f"  {label}: max_abs_err={err:.6g} kernel_ms={ms:.6f} "
-              f"plain_ms={plain_ms:.6f} bound_ms={bound:.6f} ({by}: "
-              f"{nbytes:.0f} B, {nops:.0f} ops) library_ms={lib}",
-              flush=True)
+              f"device_ms={dms:.6f} plain_ms={plain_ms:.6f} "
+              f"bound_ms={bound:.6f} ({by}: {nbytes:.0f} B, {nops:.0f} ops) "
+              f"library_ms={lib}", flush=True)
         if sub is not None:
             self.subs.setdefault(name, {})[sub] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=library_ms)
+                max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=library_ms)
             return
         src, rep = self.SOURCES[name]
         self.rows[name] = dict(
             name=name, route="cuda", source=src, replaces=rep,
-            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=library_ms,
-            **self.subs.get(name, {}))
+            launches=0, max_abs_err=err, ms=ms, device_ms=dms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=library_ms, **self.subs.get(name, {}))
 
 
 def check_kernels(torch, pt, scene: np.ndarray, table: Table,
@@ -270,7 +351,7 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     k = blur.sep_blur(base, *args0, hscale=255.0)
     p = blur.sep_blur_plain(base, *args0, hscale=255.0)
     require(torch.equal(k, p), "K1 level 0: kernel != plain")
-    ms = cuda_ms(lambda: blur.sep_blur(base, *args0, hscale=255.0))
+    ms = kernel_ms(lambda: blur.sep_blur(base, *args0, hscale=255.0))
     pms = cuda_ms(lambda: blur.sep_blur_plain(base, *args0, hscale=255.0),
                   reps=10)
     table.add("sep_blur", f"K1 sep_blur level 0, spans {sh}/{sv}, x255",
@@ -287,7 +368,7 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     p, pd = blur.sep_blur_plain(src, taps, span, taps, span, with_dog=True)
     require(torch.equal(k, p) and torch.equal(kd, pd),
             f"K1 span {span} + DoG: kernel != plain")
-    ms = cuda_ms(lambda: blur.sep_blur(src, taps, span, with_dog=True))
+    ms = kernel_ms(lambda: blur.sep_blur(src, taps, span, with_dog=True))
     pms = cuda_ms(lambda: blur.sep_blur_plain(src, taps, span, taps, span,
                                               with_dog=True), reps=10)
     # the same blur as one cuDNN convolution over the edge-padded plane
@@ -306,7 +387,7 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
               max(max_abs(k, p), max_abs(kd, pd)), ms, pms, 12 * px,
               (OPS_BLUR_PER_TAP * 2 * span + 1) * px, library_ms=lib_ms)
 
-    check_chain(torch, plan, gauss, stack, dog, table)
+    check_chain(torch, plan, gauss, 0, stack, dog, table)
 
     # K2
     f = grad.grad_field(stack)
@@ -315,7 +396,7 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     th_ulps = ulps(f[1::2], fp[1::2])
     print(f"  K2 theta: {th_ulps} ulp", flush=True)
     require(th_ulps <= 2, f"K2 theta differs by {th_ulps} ulp")
-    ms = cuda_ms(lambda: grad.grad_field(stack))
+    ms = kernel_ms(lambda: grad.grad_field(stack))
     pms = cuda_ms(lambda: grad.grad_field_plain(stack), reps=10)
     table.add("grad_field", f"K2 grad_field ({L},{h},{w})",
               max_abs(f, fp), ms, pms, 12 * L * px, OPS_GRAD * L * px)
@@ -331,8 +412,8 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     require(cands.count == cands_p.count and torch.equal(cands.x, cands_p.x)
             and torch.equal(cands.y, cands_p.y)
             and torch.equal(cands.z, cands_p.z), "K3 candidate lists differ")
-    ms = cuda_ms(lambda: detect.detect(dog, plan.sift_mode,
-                                       plan.peak_threshold))
+    ms = kernel_ms(lambda: detect.detect(dog, plan.sift_mode,
+                                         plan.peak_threshold))
     pms = cuda_ms(lambda: detect.detect_plain(dog, gate, border), reps=10)
     nl = dog.shape[0] - 2
     table.add("detect", f"K3 detect ({dog.shape[0]},{h},{w}) -> "
@@ -342,16 +423,22 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
 
     # K4-K6 work on keypoints, and octave 0 of a smooth scene holds few:
     # they are checked on the octave of this scene with the most candidates
+    # K7 also on every other octave that takes the chain
     best = (cands.count, 0, stack, dog, cands)
+    octaves = [(0, stack, dog)]
     prev = stack
+    _, spans = ops_pyr.chain_filters(gauss, plan.levels)
     for o in range(1, plan.octaves):
         st, dg = ops_pyr.build_octave(prev, o, plan.dims, plan.levels, gauss,
                                       plan.sift_mode, plan.upscale_factor)
+        if ops_pyr.chain_eligible(st.shape[1], st.shape[2], spans):
+            check_chain(torch, plan, gauss, o, st, dg, table)
         c = ops_ext.compact_mask(
             detect.detect(dg, plan.sift_mode, plan.peak_threshold),
             plan.cand_caps[o])
         if c.count > best[0]:
             best = (c.count, o, st, dg, c)
+        octaves.append((o, st, dg))
         prev = st
     _, ob, stack, dog, cands = best
     w, h = plan.dims[ob]
@@ -379,7 +466,7 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
           f"kept after {iters} slot-iterations", flush=True)
     require(s_ulps <= 2, f"K4 sigma differs by {s_ulps} ulp")
     cx, cy = cands.x, cands.y
-    ms = cuda_ms(lambda: refine.refine(dog, cx, cy, cz, rp))
+    ms = kernel_ms(lambda: refine.refine(dog, cx, cy, cz, rp))
     pms = cuda_ms(lambda: refine.refine_plain(dog, cx, cy, cz, rp), reps=10)
     n = cands.count
     table.add("refine", f"K4 refine {n} candidates",
@@ -397,7 +484,7 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     require(torch.equal(hk, hk2), "K5 is not deterministic")
     require(torch.allclose(hk, hp, rtol=1e-5, atol=1e-6),
             f"K5 histograms differ by {max_abs(hk, hp):.3g}")
-    ms = cuda_ms(lambda: binwin.ori_hist(*args5))
+    ms = kernel_ms(lambda: binwin.ori_hist(*args5))
     pms = cuda_ms(lambda: binwin.ori_hist_plain(*args5), reps=10)
     ne = ex.count
     work, union, _ = support_pixels(ex.xpos, ex.ypos, ex.lpos, ex.sigma, L,
@@ -419,7 +506,7 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     require(torch.equal(dk, dk2), "K6 is not deterministic")
     require(torch.allclose(dk, dp, rtol=1e-5, atol=1e-6),
             f"K6 descriptors differ by {max_abs(dk, dp):.3g}")
-    ms = cuda_ms(lambda: binwin.desc_loop(*args6))
+    ms = kernel_ms(lambda: binwin.desc_loop(*args6))
     pms = cuda_ms(lambda: binwin.desc_loop_plain(*args6), reps=10)
     nd = int(feat.shape[0])
     work, union, _ = support_pixels(*args6[1:5], L, h, w, ang=args6[5],
@@ -427,11 +514,25 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     table.add("desc_loop", f"K6 desc_loop {nd} rows", max_abs(dk, dp), ms,
               pms, 8 * union + 20 * nd + 512 * nd, OPS_DESC_PIXEL * work)
 
-    # K10 and K11 at octave 0 and at this octave, timed at this one
+    # K6 against K11 at octave 0, at this octave (timed here) and at the
+    # octave whose keypoints have the largest sigma, where the descriptor's
+    # support comes nearest the window's half and the image edge
     stack0, dog0 = octave0
     _, ex0 = ext.octave_keypoints(plan, 0, dog0)
     check_stack_kernels(torch, plan, 0, stack0, ex0, table, timed=False)
     check_stack_kernels(torch, plan, ob, stack, ex, table, timed=True)
+    widest = None
+    for o, st, dg in octaves:
+        _, e = ext.octave_keypoints(plan, o, dg)
+        if e.count and (widest is None
+                        or float(e.sigma.max()) >= widest[0]):
+            widest = (float(e.sigma.max()), o, st, e)
+    sig, ow, st, e = widest
+    R = int(binwin.desc_support(e.sigma, half).max())
+    print(f"  largest sigma {sig:.4g} at octave {ow} ({st.shape[1]}x"
+          f"{st.shape[2]}): support half-width up to {R} of the window's "
+          f"{half}", flush=True)
+    check_stack_kernels(torch, plan, ow, st, e, table, timed=False)
 
     check_windows_and_grid(torch, plan, stack, args6[1:6], table)
     torch.cuda.synchronize()
@@ -514,13 +615,19 @@ def check_stack_kernels(torch, plan, o, stack, ex, table: Table,
     half = plan.desc_win // 2
     rows = tuple(v[feat].contiguous() for v in a10[1:]) + (ang.contiguous(),)
     dk = binwin.desc_loop_stack(stack, *rows, half)
-    require(torch.equal(dk, binwin.desc_loop(field, *rows, half)),
+    d6 = binwin.desc_loop(field, *rows, half)
+    require(torch.equal(dk, d6),
             f"K11 differs from K6 on K2's field at octave {o}")
+    require(torch.equal(d6, binwin.desc_loop(field, *rows, half)),
+            f"K6 is not deterministic at octave {o}")
     require(torch.equal(dk, binwin.desc_loop_stack(stack, *rows, half)),
             "K11 is not deterministic")
     dp = binwin.desc_loop_stack_plain(stack, *rows, half)
     require(torch.allclose(dk, dp, rtol=1e-5, atol=1e-6),
             f"K11 descriptors differ by {max_abs(dk, dp):.3g}")
+    d6p = binwin.desc_loop_plain(field, *rows, half)
+    require(torch.allclose(d6, d6p, rtol=1e-5, atol=1e-6),
+            f"K6 descriptors differ by {max_abs(d6, d6p):.3g} at octave {o}")
     ne, nd = ex.count, int(feat.shape[0])
     print(f"  K10/K11 at octave {o} ({h}x{w}): {ne} extrema, {nd} rows; "
           f"bit-equal to K5/K6 on K2's field and run to run; within "
@@ -529,14 +636,14 @@ def check_stack_kernels(torch, plan, o, stack, ex, table: Table,
     if not timed:
         return
     work, _, nbr = support_pixels(*a10[1:], L, h, w)
-    ms = cuda_ms(lambda: binwin.ori_hist_stack(*a10))
+    ms = kernel_ms(lambda: binwin.ori_hist_stack(*a10))
     pms = cuda_ms(lambda: binwin.ori_hist_stack_plain(*a10), reps=10)
     table.add("ori_hist_stack", f"K10 ori_hist_stack {ne} extrema",
               max_abs(hk, hp), ms, pms, 4 * nbr + 16 * ne + 144 * ne,
               (OPS_ORI_PIXEL + OPS_GRAD) * work)
     work, _, nbr = support_pixels(*rows[:4], L, h, w, ang=rows[4],
                                   half=half)
-    ms = cuda_ms(lambda: binwin.desc_loop_stack(stack, *rows, half))
+    ms = kernel_ms(lambda: binwin.desc_loop_stack(stack, *rows, half))
     pms = cuda_ms(lambda: binwin.desc_loop_stack_plain(stack, *rows, half),
                   reps=10)
     table.add("desc_loop_stack", f"K11 desc_loop_stack {nd} rows",
@@ -555,9 +662,11 @@ def check_stack_kernels(torch, plan, o, stack, ex, table: Table,
           f"K10 + K11: {cuda_ms(stack_path):.6f} ms", flush=True)
 
 
-def check_chain(torch, plan, gauss, stack, dog, table: Table) -> None:
-    """K7 on octave 0 in both emit modes, against K1 per level plus K2
-    (``stack`` and ``dog`` were built by K1 from the same level 0)."""
+def check_chain(torch, plan, gauss, o, stack, dog, table: Table) -> None:
+    """K7 on octave ``o`` in both emit modes, bit for bit against K1 per
+    level plus K2 (``stack`` and ``dog`` were built by K1 from the same
+    level 0) and against its plain version, and timed (the table's row at
+    octave 0)."""
     from popsift_torch.kernels import grad, octave
     from popsift_torch.ops import pyramid as ops_pyr
 
@@ -567,6 +676,11 @@ def check_chain(torch, plan, gauss, stack, dog, table: Table) -> None:
     filters, spans = ops_pyr.chain_filters(gauss, plan.levels)
     keep = (L - ops_pyr.PREV_LEVEL,)
     field = grad.grad_field(stack)
+    chosen = octave.chain_plan(h, w, spans)
+    print(f"  K7 at octave {o} ({h}x{w}): strip {chosen.strip}, segment "
+          f"{chosen.seg} rows, {chosen.smem} B of shared memory, "
+          f"{-(-w // chosen.strip) * -(-h // chosen.seg)} blocks",
+          flush=True)
     blur_ops = sum(OPS_BLUR_PER_TAP * 2 * s + 1 for s in spans[1:]) * px
     for emit_stack in (True, False):
         out = octave.octave_chain(lvl0, filters, spans, emit_stack, keep)
@@ -574,22 +688,26 @@ def check_chain(torch, plan, gauss, stack, dog, table: Table) -> None:
         ref_stack = stack if emit_stack else stack[list(keep)]
         form = "full stack" if emit_stack else f"level {keep[0]} only"
         require(torch.equal(ks, ref_stack) and torch.equal(kd, dog),
-                f"K7 ({form}): levels or DoG differ from K1 per level")
+                f"K7 ({form}, octave {o}): levels or DoG differ from K1 per "
+                f"level")
         require(torch.equal(kf[0::2], field[0::2]),
-                f"K7 ({form}): mag differs from K2")
+                f"K7 ({form}, octave {o}): mag differs from K2")
         th_ulps = ulps(kf[1::2], field[1::2])
         print(f"  K7 ({form}): levels, DoG and mag bit-equal to K1 per level "
               f"plus K2; theta {th_ulps} ulp", flush=True)
-        require(th_ulps == 0, f"K7 theta differs from K2 by {th_ulps} ulp")
+        require(th_ulps == 0, f"K7 theta differs from K2 by {th_ulps} ulp "
+                f"at octave {o}")
         ps, pd, pf = octave.octave_chain_plain(lvl0, filters, spans,
                                                emit_stack, keep)
         err = max(max_abs(ks, ps), max_abs(kd, pd), max_abs(kf, pf))
         p_ulps = ulps(kf[1::2], pf[1::2])
         require(torch.equal(ks, ps) and torch.equal(kd, pd)
                 and torch.equal(kf[0::2], pf[0::2]) and p_ulps <= 2,
-                f"K7 ({form}) differs from its plain version")
-        ms = cuda_ms(lambda: octave.octave_chain(lvl0, filters, spans,
-                                                 emit_stack, keep))
+                f"K7 ({form}, octave {o}) differs from its plain version")
+        if o:
+            continue
+        ms = kernel_ms(lambda: octave.octave_chain(lvl0, filters, spans,
+                                                   emit_stack, keep))
         pms = cuda_ms(lambda: octave.octave_chain_plain(
             lvl0, filters, spans, emit_stack, keep), reps=10)
         n_out = ks.shape[0] + (L - 1) + 2 * L
@@ -597,6 +715,13 @@ def check_chain(torch, plan, gauss, stack, dog, table: Table) -> None:
                   f"{spans[1:]}), plain theta {p_ulps} ulp", err, ms, pms,
                   4 * px * (1 + n_out), blur_ops + OPS_GRAD * L * px,
                   sub="full_stack" if emit_stack else None)
+    if o:
+        # the other chain octaves: the planner's blocks timed, level kept
+        t, dt = kernel_ms(lambda: octave.octave_chain(lvl0, filters, spans,
+                                                      False, keep))
+        print(f"  K7 (level {keep[0]} only) at octave {o}: {t:.6f} ms, "
+              f"device {dt:.6f} ms", flush=True)
+        return
 
     def per_level():
         st, _ = ops_pyr.per_level_chain(lvl0, plan.levels, gauss)
@@ -632,8 +757,8 @@ def check_windows_and_grid(torch, plan, stack, rows, table: Table) -> None:
         p = windows.gather_windows_plain(stack, lps, oy, ox, wy, wx)
         form = sub or "exact"
         require(torch.equal(k, p), f"K8 ({form}): kernel != plain")
-        ms = cuda_ms(lambda: windows.gather_windows(stack, lps, oy, ox, wy,
-                                                    wx))
+        ms = kernel_ms(lambda: windows.gather_windows(stack, lps, oy, ox, wy,
+                                                      wx))
         pms = cuda_ms(lambda: windows.gather_windows_plain(
             stack, lps, oy, ox, wy, wx), reps=10)
         # the library yardstick: one advanced-indexing call, its index
@@ -666,7 +791,7 @@ def check_windows_and_grid(torch, plan, stack, rows, table: Table) -> None:
             f"(largest entry {scale:.3g})")
     print(f"  K9: bit-identical run to run; within {max_abs(dk, dp):.3g} of "
           f"its plain version (largest entry {scale:.3g})", flush=True)
-    ms = cuda_ms(lambda: desc_grid.desc_grid(*args9))
+    ms = kernel_ms(lambda: desc_grid.desc_grid(*args9))
     pms = cuda_ms(lambda: desc_grid.desc_grid_plain(*args9), reps=10)
     wy = wk.shape[1]
     table.add("desc_grid", f"K9 desc_grid {n} rows", max_abs(dk, dp), ms,
@@ -697,7 +822,7 @@ def check_windows_and_grid(torch, plan, stack, rows, table: Table) -> None:
               flush=True)
         require(off <= n // 100 and float(row_err.max()) <= 1e-3 * scale,
                 f"{label} descriptors differ from the plain version")
-        ms = cuda_ms(lambda: kern(*args))
+        ms = kernel_ms(lambda: kern(*args))
         pms = cuda_ms(lambda: plain(*args), reps=10)
         table.add(name, f"{label} {name} {n} rows", max_abs(k, p), ms, pms,
                   4 * n * wy * 128 + 4 * 6 * n + 512 * n,
@@ -936,9 +1061,9 @@ def main() -> int:
           f"{_lib.build_info.get('build_seconds', 0.0):.1f} s "
           f"(ready after {time.perf_counter() - t0:.1f} s): "
           f"{_lib.build_info['path']}", flush=True)
-    for line in _lib.build_info.get("log", "").splitlines():
-        if "registers" in line or "error" in line.lower():
-            print("  ptxas:" + line.split("ptxas info    :")[-1], flush=True)
+    log = Path(_lib.build_info["log_path"])
+    ptxas_report(log.read_text() if log.exists() else "",
+                 ("octave_chain", "desc_loop"))
 
     t_scene = time.perf_counter()
     scenes = [make_scene(seed, 1080, 1920) for seed in range(4)]

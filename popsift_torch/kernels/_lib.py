@@ -44,7 +44,8 @@ _SIGNATURES = {
                    _F, _F, _F, _I, _P, _P, _P, _P, _P, _P, _P],
     "psk_ori_hist": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "psk_desc_loop": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
-    "psk_octave_chain": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P],
+    "psk_octave_chain": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
+                         _I, _P],
     "psk_gather_windows": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "psk_desc_grid": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                       _P, _P],
@@ -133,7 +134,6 @@ def _build(target: Path) -> None:
         raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
     os.replace(tmp, target)
     build_info["build_seconds"] = time.perf_counter() - t0
-    build_info["log"] = "\n".join(log)
 
 
 def _check_device(device: torch.device) -> None:
@@ -152,6 +152,7 @@ def library(device: torch.device) -> ctypes.CDLL:
         if _lib is None:
             _check_device(device)
             target = BUILD_DIR / f"libpopsift_torch_{_digest()}.so"
+            build_info["log_path"] = str(target.with_suffix(".log"))
             if target.exists():
                 build_info.setdefault("build_seconds", 0.0)
             else:

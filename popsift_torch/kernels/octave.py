@@ -8,10 +8,16 @@ at the image edge), the L-1 DoG layers and the interleaved
 per-level composition: K1's plain version per level, then K2's.
 
 Outputs are exactly (., H, W); the JAX kernel's block-alignment surplus
-is a TPU artefact and is not carried over.
+is a TPU artefact and is not carried over.  The kernel's blocks are
+strips of output columns cut into segments of rows, each sliding down its
+segment with a ring of rows per level in shared memory; :func:`chain_plan`
+sizes them and :func:`chain_layout` gives the rings.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -22,10 +28,21 @@ from .grad import grad_field_plain
 
 MAX_LEVELS = 16     # csrc/octave.cu kMaxLevels
 MAX_SPAN = 32
-# dynamic shared memory for the tile's two f32 buffers: the 232,448 bytes
-# a block may use on the H100, less 4 KB for the kernel's static tables
+ROWS = 8            # csrc/octave.cu kRows: rows a block advances per step
+COLS = 8            # kCols: outputs of a horizontal-pass item
+STRIPS = tuple(range(128, 31, -8))   # the strips the planner weighs
+# shared memory: what a block may use on the H100, less 4 KB for the
+# kernel's static shared memory (its ring slots)
 SMEM_BYTES = 232448 - 4096
-TILES = (64, 32, 16, 8)
+SMS = 132           # the H100's SMs; one K7 block of 512 threads fits each
+MIN_SEGMENT = 64    # fewer rows per segment pay too much vertical halo
+FILL = 0.95         # the share of the SMs a plan's one wave should fill
+
+
+class ChainPlan(NamedTuple):
+    strip: int      # output columns per block
+    seg: int        # output rows per block
+    smem: int       # dynamic shared memory per block, bytes
 
 
 def chain_halo(spans, emit_field: bool) -> int:
@@ -43,16 +60,102 @@ def octave_chain_ok(h: int, w: int, spans, emit_field: bool) -> bool:
             and h * w >= (1 << 16))
 
 
-def chain_tile(halo: int) -> int | None:
-    """K7's output tile edge for a chain halo: the largest of TILES whose
-    two f32 buffers of (P + 4) x P, P = tile + 2 halo, fit a block's
-    shared memory, or None beyond a halo of 79 (no configuration with
-    sigma <= 2 and up to 8 levels per octave needs more than 62)."""
-    for t in TILES:
-        p = t + 2 * halo
-        if 2 * (p + 4) * p * 4 <= SMEM_BYTES:
-            return t
-    return None
+def chain_halos(spans) -> list[int]:
+    """Per level, the rows/columns beyond a block's outputs that the later
+    levels and the gradient consume: 1 for the last level, and level l-1
+    needs span_l - 1 more than level l."""
+    halos = [1] * len(spans)
+    for lvl in range(len(spans) - 1, 0, -1):
+        halos[lvl - 1] = halos[lvl] + int(spans[lvl]) - 1
+    return halos
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def chain_leads(spans) -> list[int]:
+    """Rows level l runs ahead of a K7 block's base row: its halo, plus
+    ROWS for each level after it (each level takes the rows the level
+    before produced one step earlier)."""
+    L = len(spans)
+    return [h + ROWS * (L - 1 - lvl)
+            for lvl, h in enumerate(chain_halos(spans))]
+
+
+def chain_layout(spans, strip: int) -> list[dict]:
+    """K7's shared-memory rings for a strip width, level by level, as
+    csrc/octave.cu:layout lays them out: ``ring`` (pitch, depth) holds the
+    level's own rows, ``hring`` (levels >= 1) the horizontal blur of the
+    level before, the vertical pass's window, which also has a table of
+    ``hring[1]`` row offsets after the rings.  Pitches are in floats."""
+    spans = [int(s) for s in spans]
+    halos = chain_halos(spans)
+    L = len(spans)
+    out = []
+    for lvl in range(L):
+        w = strip + 2 * halos[lvl]
+        entry = {"width": w}
+        if lvl > 0:
+            entry["hring"] = (COLS * -(-w // COLS),
+                              2 * spans[lvl] - 2 + ROWS)
+        pitch, depth = _round4(w), 2 * ROWS + 2
+        if lvl + 1 < L:
+            s = spans[lvl + 1]
+            wn = w - 2 * (s - 1)
+            pitch = max(pitch, COLS * (-(-wn // COLS) - 1)
+                        + _round4(COLS + 2 * s - 2))
+            depth = 2 * ROWS + max(2, s - 1)
+        entry["ring"] = (pitch, depth)
+        out.append(entry)
+    return out
+
+
+def chain_smem(spans, strip: int) -> int:
+    """Dynamic shared memory of one K7 block, bytes: the rings, then the
+    window tables (an int per row of each horizontal ring)."""
+    lay = chain_layout(spans, strip)
+    return 4 * (sum(p * d for e in lay for p, d in
+                    [e["ring"]] + ([e["hring"]] if "hring" in e else []))
+                + sum(e["hring"][1] for e in lay[1:]))
+
+
+def chain_plan(h: int, w: int, spans) -> ChainPlan | None:
+    """K7's blocks for an (h, w) octave.  Each strip's rows are cut into
+    as many segments of at least MIN_SEGMENT rows as the SMs left over by
+    the strips hold.  The plan is the widest strip of STRIPS whose rings
+    fit shared memory and whose one wave of blocks fills FILL of the SMs,
+    else the one with the most blocks (on the H100 a narrower strip's extra
+    halo columns cost less than idle SMs, and a wider strip's fewer halo
+    columns more than the last twentieth of the SMs).  None when the spans
+    exceed the kernel's limits, octave_chain_ok's halo limit, or shared
+    memory."""
+    return _chain_plan(int(h), int(w), tuple(int(s) for s in spans))
+
+
+@functools.lru_cache(maxsize=256)
+def _chain_plan(h: int, w: int, spans: tuple):
+    """:func:`chain_plan`, cached per shape and spans (a plan is made for
+    every launch)."""
+    if (not 2 <= len(spans) <= MAX_LEVELS
+            or not all(1 <= s <= MAX_SPAN for s in spans[1:])
+            or chain_halo(spans, True) > 120):
+        return None
+    best = None
+    for cand in STRIPS:
+        smem = chain_smem(spans, cand)
+        if smem > SMEM_BYTES:
+            continue
+        strips = -(-w // cand)
+        nseg = max(1, min(SMS // strips, h // MIN_SEGMENT))
+        seg = ROWS * -(-(-(-h // nseg)) // ROWS)
+        blocks = strips * -(-h // seg)
+        plan = ChainPlan(cand, seg, smem)
+        if blocks >= FILL * SMS:
+            return plan
+        if best is None or blocks > best[0]:
+            best = (blocks, plan)
+    return None if best is None else best[1]
 
 
 def octave_chain_plain(lvl0: torch.Tensor, filters, spans,
@@ -94,12 +197,12 @@ def octave_chain(lvl0: torch.Tensor, filters, spans, emit_stack: bool,
                                            for s in spans[1:]):
         raise ValueError(f"octave_chain takes 2..{MAX_LEVELS} levels with "
                          f"spans 1..{MAX_SPAN} ({spans})")
-    tile = chain_tile(chain_halo(spans, True))
-    if tile is None:
+    H, W = lvl0.shape
+    plan = chain_plan(H, W, spans)
+    if plan is None:
         raise ValueError(f"octave_chain: halo {chain_halo(spans, True)} "
                          f"does not fit shared memory")
     dev = _lib.check_cuda("octave_chain", lvl0)
-    H, W = lvl0.shape
     keep = -1 if emit_stack else int(stack_levels[0])
     stack = torch.empty((L if emit_stack else 1, H, W), dtype=torch.float32,
                         device=dev)
@@ -112,5 +215,5 @@ def octave_chain(lvl0: torch.Tensor, filters, spans, emit_stack: bool,
     spans_arr = np.asarray(spans, np.int32)
     _lib.call("octave_chain", dev, lvl0.data_ptr(), stack.data_ptr(),
               dogs.data_ptr(), field.data_ptr(), L, H, W, taps.ctypes.data,
-              spans_arr.ctypes.data, tile, keep)
+              spans_arr.ctypes.data, plan.strip, plan.seg, plan.smem, keep)
     return stack, dogs, field

@@ -20,8 +20,7 @@ from ..config import SiftMode
 from ..gauss import GaussInfo
 from ..kernels.blur import sep_blur
 from ..kernels.grad import grad_field
-from ..kernels.octave import (chain_halo, chain_tile, octave_chain,
-                              octave_chain_ok)
+from ..kernels.octave import chain_plan, octave_chain, octave_chain_ok
 
 PREV_LEVEL = 3  # s_pyramid_build.cu:22
 
@@ -122,11 +121,11 @@ def chain_filters(gauss: GaussInfo, levels: int):
 
 
 def chain_eligible(h: int, w: int, spans) -> bool:
-    """Octaves that take K7: the JAX package's ``octave_chain_ok``, and a
-    halo that K7's shared-memory tile holds (every configuration with
+    """Octaves that take K7: the JAX package's ``octave_chain_ok``, and
+    spans whose rings K7's shared memory holds (every configuration with
     sigma <= 2 and up to 8 levels does)."""
     return (octave_chain_ok(h, w, spans, emit_field=True)
-            and chain_tile(chain_halo(spans, True)) is not None)
+            and chain_plan(h, w, spans) is not None)
 
 
 def per_level_chain(lvl0: torch.Tensor, levels: int, gauss: GaussInfo):

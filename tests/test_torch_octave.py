@@ -207,21 +207,251 @@ def test_halo_and_eligibility_match_jax(emit_field):
 
 
 def test_chain_tile_fits_every_supported_config():
-    """K7's tile holds the halo of every configuration with sigma <= 2
-    and 2..8 levels, so those configurations take the chain on exactly
-    the octaves octave_chain_ok admits."""
+    """K7's plan holds the rings of every configuration with sigma <= 2
+    and 2..8 levels in shared memory, so those configurations take the
+    chain on exactly the octaves octave_chain_ok admits; a halo of 79
+    fits too, and no plan exists for a halo octave_chain_ok refuses."""
+    dims = [(2160, 3840), (1080, 1920), (540, 960), (270, 480), (135, 240),
+            (68, 120)]
     for levels in range(2, 9):
         for sigma in (0.8, 1.0, 1.6, 2.0):
             cfg = tcfg.Config()
             cfg.levels, cfg.sigma = levels, sigma
             _, spans = tpyr.chain_filters(tgauss.build_gauss_info(cfg),
                                           levels)
-            tile = tocts.chain_tile(tocts.chain_halo(spans, True))
-            assert tile is not None and tile >= 8, (levels, sigma)
-            assert tpyr.chain_eligible(2160, 3840, spans)
-    assert tocts.chain_tile(44) == 64
-    assert tocts.chain_tile(79) == 8
-    assert tocts.chain_tile(80) is None
+            plan = tocts.chain_plan(2160, 3840, spans)
+            assert plan is not None, (levels, sigma)
+            assert plan.smem == tocts.chain_smem(spans, plan.strip)
+            assert plan.smem <= tocts.SMEM_BYTES
+            assert plan.seg % tocts.ROWS == 0
+            for h, w in dims:
+                assert tpyr.chain_eligible(h, w, spans) \
+                    == jocts.octave_chain_ok(h, w, spans, True), (spans, h, w)
+    halo79 = (1, 32, 32, 17)
+    assert tocts.chain_halo(halo79, True) == 79
+    plan = tocts.chain_plan(2160, 3840, halo79)
+    assert plan is not None and plan.smem <= tocts.SMEM_BYTES
+    halo121 = (1, 32, 32, 32, 28)
+    assert tocts.chain_halo(halo121, True) == 121
+    assert not jocts.octave_chain_ok(2160, 3840, halo121, True)
+    assert tocts.chain_plan(2160, 3840, halo121) is None
+    assert not tpyr.chain_eligible(2160, 3840, halo121)
+    # the default chain at 1080p: one wave of blocks that fills the SMs
+    _, spans = _default_chain()
+    plan = tocts.chain_plan(2160, 3840, spans)
+    blocks = -(-3840 // plan.strip) * -(-2160 // plan.seg)
+    assert tocts.FILL * tocts.SMS <= blocks <= tocts.SMS
+
+
+def _wrap(s, m):
+    """csrc/octave.cu:wrap, with its precondition asserted."""
+    assert -m <= s < 2 * m
+    s += m if s < 0 else 0
+    return s - m if s >= m else s
+
+
+def _emulate_chain(lvl0, filters, spans, strip, seg, stack_level):
+    """K7's strip-and-segment schedule in PyTorch, indexed as
+    csrc/octave.cu indexes it: per block (strip x0, segment [y0, y1)) and
+    step (base row b, ROWS rows), phase B (level 0's rows of the step into
+    its ring, every level's horizontal pass over the rows the level before
+    produced one step earlier, every level's stack and field rows, the
+    vertical windows' row tables) and phase C (every level's vertical pass
+    with the rows clamped and out-of-image columns taken from the edge
+    column, and its DoG).  Ring slots advance by ROWS a step from the
+    first step's.  Rings start as NaN and every ring row carries the image
+    row it holds, checked at every read.  Within a phase the kernel's
+    threads run in no order, so the emulation makes each phase's ring
+    writes before its reads: a slot that a phase both writes and reads
+    fails the check.  The field's differences are gathered into planes
+    and go through sqrt and atan2 as the plain version's do.  Returns
+    (stack, dogs, field)."""
+    H, W = lvl0.shape
+    L = len(spans)
+    K, C = tocts.ROWS, tocts.COLS
+    halos = tocts.chain_halos(spans)
+    leads = tocts.chain_leads(spans)
+    lay = tocts.chain_layout(spans, strip)
+    taps = [[float(v) for v in np.asarray(filters[lvl], np.float32)[:s]]
+            for lvl, s in enumerate(spans)]
+    nan = float("nan")
+    stack = torch.full((L if stack_level < 0 else 1, H, W), nan)
+    dogs = torch.full((L - 1, H, W), nan)
+    dxs = torch.full((L, H, W), nan)
+    dys = torch.full((L, H, W), nan)
+
+    def blur(v, t, n):
+        """Taps t over v[..., k + S - 1] for k < n: centre, then
+        (left + right) * t[off] for rising off."""
+        S = len(t)
+        acc = v[..., S - 1:S - 1 + n] * t[0]
+        for off in range(1, S):
+            acc = acc + (v[..., S - 1 - off:S - 1 - off + n]
+                         + v[..., S - 1 + off:S - 1 + off + n]) * t[off]
+        return acc
+
+    for y0 in range(0, H, seg):
+        for x0 in range(0, W, strip):
+            y1, wc = min(H, y0 + seg), min(strip, W - x0)
+            ring = [torch.full((e["ring"][1], e["ring"][0]), nan)
+                    for e in lay]
+            rtag = [[None] * e["ring"][1] for e in lay]
+            hring = [None] + [torch.full((e["hring"][1], e["hring"][0]),
+                                         nan) for e in lay[1:]]
+            htag = [None] + [[None] * e["hring"][1] for e in lay[1:]]
+            lo = [max(0, y0 - h) for h in halos]
+            hi = [min(H, y1 + h) for h in halos]
+            D = [len(t) for t in rtag]
+            Dh = [None] + [len(t) for t in htag[1:]]
+
+            def read(lvl, sl, row):
+                assert rtag[lvl][sl] == row, (lvl, row, rtag[lvl][sl])
+                return ring[lvl][sl]
+
+            b = max(-leads[0], y0 - halos[0] - leads[0])
+            P = [(b + leads[lvl]) % D[lvl] for lvl in range(L)]
+            Q = [None] + [(b + leads[lvl - 1] - K) % Dh[lvl]
+                          for lvl in range(1, L)]
+            while b < y1 + K:
+                # phase B: level 0's rows of this step first
+                h, w = halos[0], lay[0]["width"]
+                cols = (torch.arange(w) + x0 - h).clamp(0, W - 1)
+                for j in range(K):
+                    r = b + leads[0] + j
+                    if lo[0] <= r < hi[0]:
+                        sl = _wrap(P[0] + j, D[0])
+                        ring[0][sl, :w] = lvl0[r, cols]
+                        rtag[0][sl] = r
+                for lvl in range(1, L):
+                    S, w = spans[lvl], lay[lvl]["width"]
+                    n = C * -(-w // C)
+                    # whole float4 windows: the source pitch covers them
+                    assert lay[lvl - 1]["ring"][0] >= n - C + \
+                        -(-(C + 2 * S - 2) // 4) * 4
+                    for j in range(K):
+                        r = b + leads[lvl - 1] - K + j
+                        if not lo[lvl - 1] <= r < hi[lvl - 1]:
+                            continue
+                        src = read(lvl - 1, _wrap(P[lvl - 1] - K + j,
+                                                  D[lvl - 1]), r)
+                        dst = _wrap(Q[lvl] + j, Dh[lvl])
+                        hring[lvl][dst, :n] = blur(src, taps[lvl], n)
+                        htag[lvl][dst] = r
+                for lvl in range(L):
+                    h, rn = halos[lvl], b + leads[lvl]
+                    xs = slice(x0, x0 + wc)
+                    for j in range(K):
+                        q = rn - K - 1 + j
+                        if not y0 <= q < y1:
+                            continue
+                        mid = read(lvl, _wrap(P[lvl] + q - rn, D[lvl]), q)
+                        up = read(lvl, _wrap(P[lvl] + max(q - 1, 0) - rn,
+                                             D[lvl]), max(q - 1, 0))
+                        dn = read(lvl, _wrap(P[lvl] + min(q + 1, H - 1) - rn,
+                                             D[lvl]), min(q + 1, H - 1))
+                        if stack_level < 0 or stack_level == lvl:
+                            stack[lvl if stack_level < 0 else 0, q, xs] = \
+                                mid[h:h + wc]
+                        dxs[lvl, q, xs] = mid[h + 1:h + 1 + wc] \
+                            - mid[h - 1:h - 1 + wc]
+                        dys[lvl, q, xs] = dn[h:h + wc] - up[h:h + wc]
+                tables = [None]
+                for lvl in range(1, L):
+                    n = Dh[lvl]
+                    base = b + leads[lvl - 1] - K
+                    first = base + K - n
+                    rows = [min(max(first + j, 0), H - 1) for j in range(n)]
+                    tables.append([
+                        (row, _wrap(Q[lvl] + min(max(row - base, -n), n - 1),
+                                    n)) for row in rows])
+                # phase C: every level's new rows first, then the DoG reads
+                new = []
+                for lvl in range(1, L):
+                    S, h, w = spans[lvl], halos[lvl], lay[lvl]["width"]
+                    r0 = b + leads[lvl]
+                    rows = [i for i in range(K)
+                            if lo[lvl] <= r0 + i < hi[lvl]]
+                    if not rows:
+                        continue
+                    cs = (torch.arange(w) + x0 - h).clamp(0, W - 1) - (x0 - h)
+                    # output row r0 + i reads window rows i .. i + 2S - 2
+                    used = {j for i in rows for j in range(i, i + 2 * S - 1)}
+                    win = []
+                    for j, (row, sl) in enumerate(tables[lvl]):
+                        if j in used:
+                            assert htag[lvl][sl] == row, (lvl, row)
+                        win.append(hring[lvl][sl, cs])
+                    out = blur(torch.stack(win, 1), taps[lvl], K)
+                    new.append((lvl, r0, rows, out, w))
+                for lvl, r0, rows, out, w in new:
+                    for i in rows:
+                        sl = _wrap(P[lvl] + i, D[lvl])
+                        ring[lvl][sl, :w] = out[:, i]
+                        rtag[lvl][sl] = r0 + i
+                for lvl, r0, rows, out, w in new:
+                    S, h, hp = spans[lvl], halos[lvl], halos[lvl - 1]
+                    for i in rows:
+                        r = r0 + i
+                        if not y0 <= r < y1:
+                            continue
+                        prev = read(lvl - 1, _wrap(P[lvl - 1] + i - K - S + 1,
+                                                   D[lvl - 1]), r)
+                        dogs[lvl - 1, r, x0:x0 + wc] = \
+                            out[h:h + wc, i] - prev[hp:hp + wc]
+                P = [_wrap(P[lvl] + K, D[lvl]) for lvl in range(L)]
+                Q = [None] + [_wrap(Q[lvl] + K, Dh[lvl])
+                              for lvl in range(1, L)]
+                b += K
+    field = torch.stack([torch.sqrt(dxs * dxs + dys * dys),
+                         torch.atan2(dys, dxs)], dim=1).reshape(2 * L, H, W)
+    return stack, dogs, field
+
+
+HALO79 = (1, 32, 32, 17)
+
+
+# (H, W), strip, segment: a plane narrower than one strip; widths and
+# heights that are not multiples of the strip and the segment; one and
+# several segments, segments shorter than the chain's halo
+@pytest.mark.parametrize("which,dims,strip,seg", [
+    ("default", (70, 200), 64, 24),
+    ("default", (45, 100), 128, 64),
+    ("default", (41, 140), 96, 8),
+    ("test", (50, 150), 32, 20),
+    ("halo79", (40, 150), 64, 40),
+    ("halo79", (57, 130), 96, 28),
+])
+@pytest.mark.parametrize("emit_stack", [True, False])
+def test_chain_schedule_emulation_bit_equal(which, dims, strip, seg,
+                                            emit_stack):
+    H, W = dims
+    if which == "halo79":
+        spans, filters = HALO79, _mk_filters(HALO79)
+        lvl0 = np.random.default_rng(H * W).random((H, W)) \
+            .astype(np.float32) * 255.0
+    else:
+        lvl0, filters, spans = _chain_inputs(dims, which, seed=H * W)
+    L = len(spans)
+    keep = -1 if emit_stack else L - 3
+    x = torch.as_tensor(lvl0)
+    with one_thread():
+        out = _emulate_chain(x, filters, spans, strip, seg, keep)
+        ref = tocts.octave_chain_plain(x, filters, spans, emit_stack,
+                                       () if emit_stack else (keep,))
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+def test_chain_schedule_emulation_with_the_plan():
+    """The same at the planner's own strip and segment."""
+    lvl0, filters, spans = _chain_inputs((96, 300), "default", seed=9)
+    plan = tocts.chain_plan(96, 300, spans)
+    x = torch.as_tensor(lvl0)
+    with one_thread():
+        out = _emulate_chain(x, filters, spans, plan.strip, plan.seg, -1)
+        ref = tocts.octave_chain_plain(x, filters, spans, True)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
 
 
 def _texture(h, w, seed):
