@@ -11,9 +11,13 @@ JAX nor popsift_tpu.  In order it:
    time, and what ptxas reports for K7 and K6/K11);
 2. checks every kernel against its plain PyTorch version on the card, on
    the inputs the main paths give it for a 1080p scene: the octave-0
-   levels, DoG and stack for the blur, the octave chain (both emit modes,
-   and bit for bit against the per-level kernels, at every octave that
-   takes it), gradient and detection kernels, and the real candidates and
+   levels, DoG and stack for the blur, the blur's chain entry at every
+   octave that takes it, the octave chain (both emit modes, and bit for
+   bit against the per-level kernels, at every octave that takes it), the
+   gradient kernel, detection at every octave and on a DoG full of exact
+   ties (bit for bit), the octave-2 masks whose candidates the compaction
+   budget trims (against the ones the CPU tests hold to the JAX package),
+   and the real candidates and
    keypoint rows of the scene's busiest octave for refinement,
    orientation, loop descriptors (from the field and from the stack; the
    stack kernels also bit for bit against the field kernels on K2's field,
@@ -29,6 +33,9 @@ JAX nor popsift_tpu.  In order it:
    moved from their recorded counts, and checks that a repeated frame
    gives bit-identical features; it times five such passes (median and
    range) and profiles one more for the device's busy and idle share;
+   per scene it requires the recorded count of candidates the compaction
+   budget dropped and at most MAX_K1_CALLS calls of K1 (the same on every
+   path);
 4. drives the NoTile path, PopSift(Config(desc_mode=notile)), the same
    way, and checks that its keypoints are the default path's;
 5. drives the stack-kernel path (POPSIFT_TPU_STACK_KERNELS=1 on the
@@ -82,19 +89,28 @@ OPS_ILOOP_SAMPLE = 90         # 4 bilinear samples (12 each), hypot, atan2,
 
 # Features per image of the default path on the four 1080p scenes (seeds
 # 0-3), as the per-level pyramid gave them; the fused chain is bit-equal
-# to it, so they must not move.
-DEFAULT_FEATURES = (2301, 2474, 2423, 2499)
+# to it, so they must not move.  The compaction budget (16 candidates per
+# 1024-voxel run, as the JAX package keeps) drops BUDGET_DROPPED of each
+# scene's candidates, all at octave 2; tests/test_torch_detect.py holds the
+# port's candidates on those masks to the JAX package's compact_mask.
+DEFAULT_FEATURES = (2299, 2469, 2420, 2499)
+BUDGET_DROPPED = (2, 6, 3, 0)
+BUDGET_MASKS = HERE / "tests" / "data" / "budget_masks_1080p.npz"
+# K1's calls per image on every path: octave 0's level 0, and one chain
+# call for each octave that K7 does not take
+MAX_K1_CALLS = 6
 # The kernels each path launches (the others are not on it).
-LOOP_PATH = ("sep_blur", "octave_chain", "grad_field", "detect", "refine",
-             "ori_hist", "desc_loop")
-NOTILE_PATH = ("sep_blur", "octave_chain", "grad_field", "detect", "refine",
-               "ori_hist", "gather_windows", "desc_grid")
-STACK_PATH = ("sep_blur", "octave_chain", "detect", "refine",
+LOOP_PATH = ("sep_blur", "blur_chain", "octave_chain", "grad_field",
+             "detect", "refine", "ori_hist", "desc_loop")
+NOTILE_PATH = ("sep_blur", "blur_chain", "octave_chain", "grad_field",
+               "detect", "refine", "ori_hist", "gather_windows", "desc_grid")
+STACK_PATH = ("sep_blur", "blur_chain", "octave_chain", "detect", "refine",
               "ori_hist_stack", "desc_loop_stack")
-GRID_PATH = ("sep_blur", "octave_chain", "grad_field", "detect", "refine",
-             "ori_hist", "gather_windows", "desc_grid_rounded")
-ILOOP_PATH = ("sep_blur", "octave_chain", "grad_field", "detect", "refine",
-              "ori_hist", "gather_windows", "desc_iloop")
+GRID_PATH = ("sep_blur", "blur_chain", "octave_chain", "grad_field",
+             "detect", "refine", "ori_hist", "gather_windows",
+             "desc_grid_rounded")
+ILOOP_PATH = ("sep_blur", "blur_chain", "octave_chain", "grad_field",
+              "detect", "refine", "ori_hist", "gather_windows", "desc_iloop")
 # the kernels the stack path must not launch: it reads no gradient field
 NOT_ON_STACK_PATH = ("grad_field", "ori_hist", "desc_loop")
 STACK_SWITCH = "POPSIFT_TPU_STACK_KERNELS"
@@ -144,19 +160,16 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-# kernels one call of a library entry launches, where it is not one
-ENTRY_KERNELS = {"sep_blur": 2}
-
-
 def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     """Mean device time of the library kernels one call of ``fn``
     launches: their durations in torch.profiler's CUDA activity over
     ``reps`` calls, without the host time that CUDA events around a call
     count.  The library's kernels are the records named in an anonymous
     namespace at the top level; each call must give as many as the
-    wrappers count launches (two kernels for K1).  The profiler now and
-    then loses activity: a profile with any other number of records is
-    taken again, and after three such profiles this raises."""
+    wrappers count launches (each entry launches one kernel).  The
+    profiler now and then loses activity: a profile with any other number
+    of records is taken again, and after three such profiles this
+    raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -166,8 +179,7 @@ def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         fn()
     torch.cuda.synchronize()
     after = _lib.launches()
-    launched = sum((after[k] - before[k]) * ENTRY_KERNELS.get(k, 1)
-                   for k in after)
+    launched = sum(after[k] - before[k] for k in after)
     require(launched > 0 and launched % warmup == 0,
             f"device_ms: {launched} launches in {warmup} calls")
     want = reps * launched // warmup
@@ -216,14 +228,20 @@ def ptxas_report(log: str, names) -> None:
         m = re.search(r"(?:entry function|properties for) '?(_Z\w+)", line)
         if m:
             # a mangled name holds <length><name>, then I<arguments>E for
-            # a template (ILb1 for kStack = true)
+            # a template, each constant argument L<type><value>E (Lb1 for
+            # true, Li16 for 16)
             kernel = None
             for name in names:
                 at = m.group(1).find(f"{len(name)}{name}")
                 if at >= 0:
                     rest = m.group(1)[at + len(str(len(name))) + len(name):]
-                    kernel = name + ("<stack>" if rest.startswith("ILb1")
-                                     else "")
+                    args = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
+                    kernel = name
+                    if args:
+                        vals = [{"b1": "true", "b0": "false"}.get(a, a[1:])
+                                for a in re.findall(r"L([a-z]\d+)E",
+                                                    args.group(1))]
+                        kernel += "<" + ", ".join(vals) + ">"
             continue
         if kernel and ("registers" in line or "spill" in line):
             print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}",
@@ -262,6 +280,8 @@ class Table:
     SOURCES = {
         "sep_blur": ("popsift_torch/csrc/blur.cu",
                      "popsift_tpu/kernels/blur.py:94"),
+        "blur_chain": ("popsift_torch/csrc/blur.cu",
+                       "popsift_tpu/kernels/blur.py:94"),
         "grad_field": ("popsift_torch/csrc/grad.cu",
                        "popsift_tpu/kernels/grad.py:97"),
         "detect": ("popsift_torch/csrc/detect.cu",
@@ -401,11 +421,13 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     table.add("grad_field", f"K2 grad_field ({L},{h},{w})",
               max_abs(f, fp), ms, pms, 12 * L * px, OPS_GRAD * L * px)
 
-    # K3
+    # K3, at octave 0 (timed), at every other octave below, and on a DoG
+    # full of exact ties
     m = detect.detect(dog, plan.sift_mode, plan.peak_threshold)
     gate, border = detect.gate_for(plan.sift_mode, plan.peak_threshold)
     mp = detect.detect_plain(dog, gate, border)
     require(torch.equal(m, mp), "K3 mask: kernel != plain")
+    check_detect_ties(torch, plan, dev)
     cands = ops_ext.compact_mask(m, plan.cand_caps[0])
     octave0 = (stack, dog)
     cands_p = ops_ext.compact_mask(mp, plan.cand_caps[0])
@@ -428,14 +450,18 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     octaves = [(0, stack, dog)]
     prev = stack
     _, spans = ops_pyr.chain_filters(gauss, plan.levels)
+    filters = ops_pyr.chain_filters(gauss, plan.levels)[0]
     for o in range(1, plan.octaves):
         st, dg = ops_pyr.build_octave(prev, o, plan.dims, plan.levels, gauss,
                                       plan.sift_mode, plan.upscale_factor)
         if ops_pyr.chain_eligible(st.shape[1], st.shape[2], spans):
             check_chain(torch, plan, gauss, o, st, dg, table)
-        c = ops_ext.compact_mask(
-            detect.detect(dg, plan.sift_mode, plan.peak_threshold),
-            plan.cand_caps[o])
+        else:
+            check_blur_chain(torch, o, st, dg, filters, spans, table)
+        mo = detect.detect(dg, plan.sift_mode, plan.peak_threshold)
+        require(torch.equal(mo, detect.detect_plain(dg, gate, border)),
+                f"K3 mask at octave {o}: kernel != plain")
+        c = ops_ext.compact_mask(mo, plan.cand_caps[o])
         if c.count > best[0]:
             best = (c.count, o, st, dg, c)
         octaves.append((o, st, dg))
@@ -536,6 +562,94 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
 
     check_windows_and_grid(torch, plan, stack, args6[1:6], table)
     torch.cuda.synchronize()
+
+
+def check_blur_chain(torch, o, stack, dog, filters, spans,
+                     table: Table) -> None:
+    """K1's chain entry on octave ``o`` (``stack`` and ``dog`` are what the
+    path's per-level form computed from the same level 0): bit for bit
+    against its plain version, K1's plain version per level; timed at the
+    first such octave, the table's row."""
+    from popsift_torch.kernels import blur
+
+    L, h, w = stack.shape
+    lvl0 = stack[0].contiguous()
+    ps, pd = blur.blur_chain_plain(lvl0, filters, spans)
+    ks, kd = blur.blur_chain(lvl0, filters, spans)
+    require(torch.equal(ks, ps) and torch.equal(kd, pd)
+            and torch.equal(stack, ps) and torch.equal(dog, pd),
+            f"K1 chain entry at octave {o}: kernel != plain")
+    err = max(max_abs(ks, ps), max_abs(kd, pd))
+    blocks, rows = blur.chain_bands(h)
+    ms = kernel_ms(lambda: blur.blur_chain(lvl0, filters, spans))
+    print(f"  K1 chain entry at octave {o} ({h}x{w}, {blocks} blocks of "
+          f"{rows} rows): bit-equal to K1's plain version per level; "
+          f"{ms[0]:.6f} ms, device {ms[1]:.6f} ms", flush=True)
+    if "blur_chain" in table.rows:
+        return
+    px = h * w
+    pms = cuda_ms(lambda: blur.blur_chain_plain(lvl0, filters, spans),
+                  reps=10)
+    table.add("blur_chain", f"K1 blur_chain octave {o} ({L},{h},{w}), spans "
+              f"{spans[1:]}", err, ms, pms, 4 * px * (1 + 2 * (L - 1)),
+              sum(OPS_BLUR_PER_TAP * 2 * s + 1 for s in spans[1:]) * px)
+
+
+def tie_rich_dog(torch, shape, seed, dev):
+    """A DoG of values quantised to nine levels, with plateaus and signed
+    zeros: every comparison of the extremum test meets exact ties."""
+    rng = np.random.default_rng(seed)
+    d = (rng.integers(-4, 5, shape) * 1.0).astype(np.float32)
+    for _ in range(shape[1] * shape[2] // 40):
+        p, y, x = (int(rng.integers(0, n)) for n in shape)
+        d[p, y:y + 3, x:x + 4] = rng.integers(-4, 5)
+    zeros = rng.random(shape) < 0.1
+    d[zeros] = np.where(rng.random(int(zeros.sum())) < 0.5, -0.0, 0.0)
+    return torch.as_tensor(d, device=dev)
+
+
+def check_detect_ties(torch, plan, dev) -> None:
+    """K3 bit for bit against its plain version on tie-rich DoGs, one with
+    aligned rows and one without."""
+    from popsift_torch.kernels import detect
+
+    gate, border = detect.gate_for(plan.sift_mode, plan.peak_threshold)
+    for shape in ((5, 540, 960), (5, 517, 1001)):
+        d = tie_rich_dog(torch, shape, 5, dev)
+        m = detect.detect(d, plan.sift_mode, plan.peak_threshold)
+        mp = detect.detect_plain(d, gate, border)
+        require(torch.equal(m, mp), f"K3 on a tie-rich DoG {shape}: kernel "
+                f"!= plain")
+        print(f"  K3 on a tie-rich DoG {shape}: bit-equal to its plain "
+              f"version ({int(mp.sum())} extrema)", flush=True)
+
+
+def check_budget_masks(torch, pt, scenes, dev) -> None:
+    """The octave-2 masks of scenes 0-2, whose candidates the compaction
+    budget trims, are the ones tests/test_torch_detect.py holds the
+    port's compaction to the JAX package's on."""
+    from popsift_torch import extract as ext
+    from popsift_torch.gauss import build_gauss_info
+    from popsift_torch.kernels import detect
+    from popsift_torch.ops import pyramid as ops_pyr
+
+    stored = np.load(BUDGET_MASKS)
+    cfg = pt.Config()
+    h, w = scenes[0].shape
+    plan = ext.make_plan(cfg, w, h)
+    gauss = build_gauss_info(cfg)
+    for seed in range(3):
+        src = ext.to_unit_image(scenes[seed], dev)
+        for o in range(3):
+            _, src, dog, _ = ops_pyr.octave_outputs(
+                src, o, plan.dims, plan.levels, gauss, plan.sift_mode,
+                plan.upscale_factor, full_stack=False)
+        m = detect.detect(dog, plan.sift_mode, plan.peak_threshold)
+        flat = torch.nonzero(m.reshape(-1)).reshape(-1).cpu().numpy()
+        require(np.array_equal(flat, stored[f"s{seed}_o2"]),
+                f"scene {seed}'s octave-2 mask differs from {BUDGET_MASKS}")
+    print(f"  octave-2 masks of scenes 0-2 as in {BUDGET_MASKS.name}",
+          flush=True)
 
 
 def support_pixels(xs, ys, lpos, sigma, L, h, w, ang=None, half=0):
@@ -863,6 +977,7 @@ def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
     ``not_launched``.  Returns the path's numbers and the first pass's
     features."""
     from popsift_torch import kernels
+    from popsift_torch.ops import extrema as ops_ext
 
     h, w = scenes[0].shape
     print(f"{label} on {len(scenes)} distinct {w}x{h} scenes, "
@@ -884,6 +999,15 @@ def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
         counts = kernels.launches()
         pass_ms = [ms_first] + [one_pass(ps)[1] for _ in range(passes - 1)]
         again = ps.enqueue(w, h, scenes[0]).get()
+        # per scene: candidates the compaction budget dropped, K1 calls
+        dropped, k1_calls = [], []
+        for scene in scenes:
+            kernels.reset_launches()
+            ops_ext.reset_budget_dropped()
+            ps.enqueue(w, h, scene).get()
+            dropped.append(ops_ext.budget_dropped())
+            n = kernels.launches()
+            k1_calls.append(n["sep_blur"] + n["blur_chain"])
     ms_img = float(np.median(pass_ms))
     print("  features per image: "
           + ", ".join(f"{f.get_feature_count()}/{f.get_descriptor_count()}"
@@ -893,6 +1017,13 @@ def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
           + f"), {1e3 / ms_img:.3f} images/s (host clock, {len(scenes)} "
           f"images per pass)", flush=True)
     print(f"  launches: {json.dumps(counts)}", flush=True)
+    print(f"  per scene: candidates the compaction budget dropped "
+          f"{dropped}, K1 calls {k1_calls}", flush=True)
+    require(tuple(dropped) == BUDGET_DROPPED,
+            f"the budget dropped {dropped} candidates, recorded "
+            f"{BUDGET_DROPPED}")
+    require(max(k1_calls) <= MAX_K1_CALLS,
+            f"K1 called {k1_calls} times per image (at most {MAX_K1_CALLS})")
     for name in path_kernels:
         require(counts[name] > 0,
                 f"kernel {name} was not launched on the {label} path")
@@ -913,7 +1044,7 @@ def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
               f"unprofiled wall ({100 * prof['device_idle_share_profiled']:.1f}"
               f"% under the profiler)", flush=True)
     return dict(ms_per_image=ms_img, pass_ms_per_image=pass_ms,
-                counts=counts,
+                counts=counts, budget_dropped=dropped, k1_calls=k1_calls,
                 features=[f.get_feature_count() for f in feats],
                 descriptors=[f.get_descriptor_count() for f in feats],
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1063,7 +1194,8 @@ def main() -> int:
           f"{_lib.build_info['path']}", flush=True)
     log = Path(_lib.build_info["log_path"])
     ptxas_report(log.read_text() if log.exists() else "",
-                 ("octave_chain", "desc_loop"))
+                 ("octave_chain", "desc_loop", "sep_blur", "blur_chain",
+                  "detect"))
 
     t_scene = time.perf_counter()
     scenes = [make_scene(seed, 1080, 1920) for seed in range(4)]
@@ -1071,6 +1203,7 @@ def main() -> int:
           flush=True)
     table = Table()
     check_kernels(torch, pt, scenes[0], table, torch.device("cuda"))
+    check_budget_masks(torch, pt, scenes, torch.device("cuda"))
 
     print("phase 3: the default path, ", end="")
     loop_stats, loop_feats = run_path(torch, pt, scenes, pt.Config(),

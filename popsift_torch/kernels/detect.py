@@ -5,6 +5,12 @@ detect_packed_pallas.  From the (levels+2, H, W) DoG it writes a
 (levels, H, W) uint8 mask whose layer z is DoG layer z+1: a value strictly
 greater (or strictly smaller) than its 26 neighbours, passing the SiftMode
 contrast gate, outside the border (s_extrema.cu:56-120, 506-517).
+
+The kernel's warps each own a strip of :data:`STRIP` output columns (2 a
+lane in lanes 1-30; lanes 0 and 31 load the halo columns) over a segment
+of rows and a group of up to :data:`GROUP` mask layers
+(:func:`detect_plan`), and slide down the segment, reading every DoG
+plane of the group once.
 """
 
 from __future__ import annotations
@@ -14,6 +20,27 @@ import torch
 
 from ..config import SiftMode
 from . import _lib
+
+COLS = 2             # columns of a lane (csrc/detect.cu kCols)
+STRIP = 30 * COLS    # output columns of a warp (kStrip)
+GROUP = 3            # the most mask layers of a warp (kGroup)
+SEG_ROWS = (2, 16)   # the least and most rows of a larger plane's segment
+SMALL_PLANE = 1 << 15
+WARPS_WANTED = 132 * 32   # twice the warps that fit the H100's SMs at once
+
+
+def detect_plan(levels: int, H: int, W: int) -> tuple[int, int]:
+    """(rows of a warp's segment, mask layers of a warp).  A plane of at
+    most SMALL_PLANE pixels cannot fill the card: one row and one layer a
+    warp keep each warp's serial work shortest.  A larger one takes GROUP
+    layers a warp, each DoG plane then read once, in segments short
+    enough that the launch has WARPS_WANTED warps and long enough that the
+    two rows each reads above its first output row stay cheap."""
+    if H * W <= SMALL_PLANE:
+        return 1, 1
+    warps = -(-W // STRIP) * -(-levels // GROUP)
+    seg = -(-H * warps // WARPS_WANTED)
+    return max(SEG_ROWS[0], min(SEG_ROWS[1], seg)), GROUP
 
 
 def gate_for(sift_mode: SiftMode, peak_threshold: float):
@@ -67,6 +94,7 @@ def detect(dog: torch.Tensor, sift_mode: SiftMode,
     dev = _lib.check_cuda("detect", dog)
     L, H, W = dog.shape
     mask = torch.empty((L - 2, H, W), dtype=torch.uint8, device=dev)
+    seg, group = detect_plan(L - 2, H, W)
     _lib.call("detect", dev, dog.data_ptr(), mask.data_ptr(), L - 2, H, W,
-              gate, border)
+              gate, border, seg, group)
     return mask

@@ -7,8 +7,10 @@ horizontally, x255, and ``inc[0]`` vertically (K1); the level 0 of a later
 octave picks every second pixel of level ``levels`` of the octave before.
 Every further level blurs the previous one with ``inc[l]``: on octaves that
 ``octave_chain_ok`` admits, K7 computes all of them with the DoG and the
-field in one launch; smaller octaves run K1 per level (each launch also
-writes its DoG layer) and then K2.
+field in one launch; the others run K1, then K2.  K1 takes an octave that
+``chain_fits`` (at most 2^16 pixels in bands that fit the blocks' shared
+memory) in one launch of its chain entry, and a larger one level by level
+(each launch also writes its DoG layer).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from ..config import SiftMode
 from ..gauss import GaussInfo
-from ..kernels.blur import sep_blur
+from ..kernels.blur import blur_chain, chain_fits, sep_blur
 from ..kernels.grad import grad_field
 from ..kernels.octave import chain_plan, octave_chain, octave_chain_ok
 
@@ -129,17 +131,20 @@ def chain_eligible(h: int, w: int, spans) -> bool:
 
 
 def per_level_chain(lvl0: torch.Tensor, levels: int, gauss: GaussInfo):
-    """Levels 1..L-1 from level 0 with K1 per level.  Returns
-    (stack (L, H, W), dog (L-1, H, W))."""
+    """Levels 1..L-1 from level 0 with K1: one launch of its chain entry
+    for a small octave, else one launch per level.  Returns (stack
+    (L, H, W), dog (L-1, H, W))."""
     h, w = lvl0.shape
+    filters, spans = chain_filters(gauss, levels)
+    if chain_fits(h, w, spans):
+        return blur_chain(lvl0, filters, spans)
     L = levels + 3
     stack = torch.empty((L, h, w), dtype=torch.float32, device=lvl0.device)
     dog = torch.empty((L - 1, h, w), dtype=torch.float32, device=lvl0.device)
     stack[0].copy_(lvl0)
     for lvl in range(1, L):
-        sep_blur(stack[lvl - 1], gauss.inc.filter[lvl],
-                 int(gauss.inc.span[lvl]), with_dog=True, out=stack[lvl],
-                 dog_out=dog[lvl - 1])
+        sep_blur(stack[lvl - 1], filters[lvl], spans[lvl], with_dog=True,
+                 out=stack[lvl], dog_out=dog[lvl - 1])
     return stack, dog
 
 
