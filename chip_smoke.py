@@ -18,8 +18,13 @@ JAX nor popsift_tpu.  In order it:
    ties (bit for bit), the octave-2 masks whose candidates the compaction
    budget trims (against the ones the CPU tests hold to the JAX package),
    and the real candidates and
-   keypoint rows of the scene's busiest octave for refinement,
-   orientation, loop descriptors (from the field and from the stack; the
+   keypoint rows of the scene's busiest octave for refinement (per
+   candidate, and with its compaction bit for bit against
+   compact_extrema of both, at the octave's capacity and at one that
+   overflows), orientation (the histograms within rtol 1e-5 of the plain
+   ones, num_ori and the angles bit for bit against the plain peaks of
+   the kernel's own histograms, and the epilogue alone on tie-rich
+   histograms), loop descriptors (from the field and from the stack; the
    stack kernels also bit for bit against the field kernels on K2's field,
    at octave 0, at the busiest octave and at the octave of the largest
    sigma), the window gather (both call shapes) and the NoTile, Grid and
@@ -30,9 +35,12 @@ JAX nor popsift_tpu.  In order it:
 3. drives the default path, PopSift(Config()).enqueue(...).get(), on four
    distinct 1080p scenes with the launch counts reset just before, fails
    if a kernel of that path was not launched or the features per image
-   moved from their recorded counts, and checks that a repeated frame
-   gives bit-identical features; it times five such passes (median and
-   range) and profiles one more for the device's busy and idle share;
+   moved from their recorded counts (and prints how the descriptor rows
+   compare with those of the plain peaks), and checks that a repeated
+   frame gives bit-identical features; it times five such passes (median and
+   range) and profiles one more for the device's busy and idle share, and
+   counts the PyTorch operations per image (none may be torch.roll: the
+   orientation peaks are K5's);
    per scene it requires the recorded count of candidates the compaction
    budget dropped and at most MAX_K1_CALLS calls of K1 (the same on every
    path);
@@ -79,6 +87,8 @@ OPS_GRAD = 7                  # 2 sub, 2 mul, add, sqrt, atan2
 OPS_DETECT = 56               # 26 max, 26 min, 2 compares, abs, gate
 OPS_REFINE_ITER = 110         # derivatives, 3x3 solve, step rule
 OPS_ORI_PIXEL = 16            # distance, exp weight, bin
+OPS_ORI_PEAKS = 36 * 30       # per extremum: 6 smoothing passes, the peak
+#                               test and refinement, 4 argmax rounds
 OPS_DESC_PIXEL = 100          # rotation, exp weight, angle, 16 tiles x 2 bins
 OPS_GRID_SAMPLE = 70          # rotation, 4 bilinear taps, hypot, atan2, bins
 OPS_GRID_TILES = 2 * 16 * (40 * 32 + 128)   # the two tile contractions
@@ -94,6 +104,12 @@ OPS_ILOOP_SAMPLE = 90         # 4 bilinear samples (12 each), hypot, atan2,
 # scene's candidates, all at octave 2; tests/test_torch_detect.py holds the
 # port's candidates on those masks to the JAX package's compact_mask.
 DEFAULT_FEATURES = (2299, 2469, 2420, 2499)
+# Descriptor rows per image of the default path (one per accepted
+# orientation) when the peaks were plain PyTorch ops after a kernel that
+# wrote only the histograms.  K5 sums each histogram in another order, so
+# a peak that the last bit decides (at the 0.8 acceptance line, or tied
+# with another) may go the other way: a change is printed, not refused.
+PLAIN_PEAKS_DESCRIPTORS = (2490, 2656, 2606, 2682)
 BUDGET_DROPPED = (2, 6, 3, 0)
 BUDGET_MASKS = HERE / "tests" / "data" / "budget_masks_1080p.npz"
 # K1's calls per image on every path: octave 0's level 0, and one chain
@@ -160,19 +176,42 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Mean device time of the library kernels one call of ``fn``
-    launches: their durations in torch.profiler's CUDA activity over
-    ``reps`` calls, without the host time that CUDA events around a call
-    count.  The library's kernels are the records named in an anonymous
-    namespace at the top level; each call must give as many as the
-    wrappers count launches (each entry launches one kernel).  The
-    profiler now and then loses activity: a profile with any other number
-    of records is taken again, and after three such profiles this
-    raises."""
+def library_records(fn, reps: int) -> list:
+    """(name, us) of each record of the library's kernels in
+    torch.profiler's CUDA activity over ``reps`` calls of ``fn``: the
+    records named in an anonymous namespace at the top level.  The profile
+    holds 50 ms of idle host time before the first call and after the
+    last kernel ends, because the profiler drops the records that its
+    clock places outside its window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and e.name.removeprefix("void ").startswith(
+                "(anonymous namespace)::")]
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 2,
+              per_launch: int = 1) -> float | None:
+    """Mean device time of the library kernels one call of ``fn``
+    launches, from :func:`library_records`, without the host time that
+    CUDA events around a call count.  Each call must give ``per_launch``
+    records for each launch the wrappers count (one for every entry but
+    K4's refinement with its compaction, which launches two kernels).  A
+    profile with fewer records is taken again.  After three such profiles
+    the time is estimated from the fullest one, each kernel name's mean
+    record times the records a call gives over the names seen, and a note
+    says so; with no record at all it is None (not measured).  The
+    wrappers' launch counts, not the profiler, show that a kernel ran."""
+    import torch
     from popsift_torch.kernels import _lib
     before = _lib.launches()
     for _ in range(warmup):
@@ -182,26 +221,41 @@ def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     launched = sum(after[k] - before[k] for k in after)
     require(launched > 0 and launched % warmup == 0,
             f"device_ms: {launched} launches in {warmup} calls")
-    want = reps * launched // warmup
+    per_call = launched * per_launch // warmup
+    want = reps * per_call
+    best = []
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and e.name.removeprefix("void ").startswith(
-                     "(anonymous namespace)::")]
-        if len(spans) == want:
-            return sum(spans) / reps / 1e3
-    raise AssertionError(f"device_ms: the profiler recorded {len(spans)} of "
-                         f"{want} launches, three times")
+        recs = library_records(fn, reps)
+        require(len(recs) <= want, f"device_ms: {len(recs)} records of "
+                f"the library's kernels for {want} launches")
+        if len(recs) == want:
+            return sum(us for _, us in recs) / reps / 1e3
+        print(f"  (device_ms: the profiler recorded {len(recs)} of {want} "
+              f"launches; profiled again)", flush=True)
+        best = max(best, recs, key=len)
+    if not best:
+        print("  (device_ms: no record in three profiles; device time not "
+              "measured)", flush=True)
+        return None
+    by_name = {}
+    for name, us in best:
+        by_name.setdefault(name, []).append(us)
+    est = sum(sum(v) / len(v) for v in by_name.values()) \
+        * per_call / len(by_name) / 1e3
+    print(f"  (device_ms: {len(best)} of {want} records at best; estimated "
+          f"from the mean record of each of {len(by_name)} kernels)",
+          flush=True)
+    return est
 
 
-def kernel_ms(fn, reps: int = 20) -> tuple[float, float]:
+def fmt_ms(t: float | None) -> str:
+    return "not measured" if t is None else f"{t:.6f}"
+
+
+def kernel_ms(fn, reps: int = 20, per_launch: int = 1) -> tuple[float, float]:
     """A kernel's two times: between CUDA events (the median) and on the
     device (the mean)."""
-    return cuda_ms(fn, reps), device_ms(fn, reps)
+    return cuda_ms(fn, reps), device_ms(fn, reps, per_launch=per_launch)
 
 
 def ulps(a, b) -> int:
@@ -325,7 +379,7 @@ class Table:
         by = "bytes" if t_bytes >= t_ops else "operations"
         lib = "null" if library_ms is None else f"{library_ms:.6f}"
         print(f"  {label}: max_abs_err={err:.6g} kernel_ms={ms:.6f} "
-              f"device_ms={dms:.6f} plain_ms={plain_ms:.6f} "
+              f"device_ms={fmt_ms(dms)} plain_ms={plain_ms:.6f} "
               f"bound_ms={bound:.6f} ({by}: {nbytes:.0f} B, {nops:.0f} ops) "
               f"library_ms={lib}", flush=True)
         if sub is not None:
@@ -473,7 +527,7 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     print(f"  K4-K6 at octave {ob} ({h}x{w}), {cands.count} candidates",
           flush=True)
 
-    # K4
+    # K4, per candidate: the kernel against its plain version
     rp = ext.refine_params_for(plan, ob, dog.shape[0])
     cz = cands.z + 1
     kr = refine.refine(dog, cands.x, cands.y, cz, rp)
@@ -495,28 +549,58 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     ms = kernel_ms(lambda: refine.refine(dog, cx, cy, cz, rp))
     pms = cuda_ms(lambda: refine.refine_plain(dog, cx, cy, cz, rp), reps=10)
     n = cands.count
-    table.add("refine", f"K4 refine {n} candidates",
+    table.add("refine", f"K4 refine {n} candidates, per candidate",
               max(max_abs(xn, pxn), max_abs(yn, pyn), max_abs(sig, psig)),
-              ms, pms, n * 12 + iters * 27 * 4 + n * 21,
-              OPS_REFINE_ITER * iters)
+              ms, pms, n * 12 + iters * 27 * 4 + n * 24,
+              OPS_REFINE_ITER * iters, sub="per_candidate")
+    cap = plan.ext_caps[ob]
+    ex = check_refine_compact(torch, dog, cands, rp, cap, iters, table)
 
-    # K5 on the octave's extrema
-    ex = ops_ext.compact_extrema(*kr, plan.ext_caps[ob])
+    # K5 on the octave's extrema: the histogram and the peaks
     field = grad.grad_field(stack)
     args5 = (field, ex.xpos, ex.ypos, ex.lpos, ex.sigma)
-    hk = binwin.ori_hist(*args5)
-    hk2 = binwin.ori_hist(*args5)
+    ne = ex.count
+    hk = torch.empty((ne, 36), dtype=torch.float32, device=dev)
+    hk2 = torch.empty_like(hk)
+    num, ang = binwin.ori_peaks(*args5, hist=hk)
+    num2, ang2 = binwin.ori_peaks(*args5, hist=hk2)
+    require(torch.equal(hk, hk2) and torch.equal(num, num2)
+            and torch.equal(ang, ang2), "K5 is not deterministic")
+    require(torch.equal(hk, binwin.ori_hist(*args5)),
+            "K5: ori_hist differs from ori_peaks' histograms")
+    pn, pa = binwin.peaks_from_hist(hk)
+    require(torch.equal(num, pn) and torch.equal(ang, pa),
+            "K5: num_ori or angles differ from peaks_from_hist of the "
+            "kernel's own histograms")
     hp = binwin.ori_hist_plain(*args5)
-    require(torch.equal(hk, hk2), "K5 is not deterministic")
     require(torch.allclose(hk, hp, rtol=1e-5, atol=1e-6),
             f"K5 histograms differ by {max_abs(hk, hp):.3g}")
-    ms = kernel_ms(lambda: binwin.ori_hist(*args5))
-    pms = cuda_ms(lambda: binwin.ori_hist_plain(*args5), reps=10)
-    ne = ex.count
+    qn, qa = binwin.ori_peaks_plain(*args5)
+    same = num == qn
+    off = int((~same).sum())
+    err = max(max_abs(hk, hp), max_abs(ang[same], qa[same]))
+    print(f"  K5: num_ori and angles bit-equal to peaks_from_hist of its "
+          f"own histograms and run to run; histograms within "
+          f"{max_abs(hk, hp):.3g} of the plain version, whose peaks give "
+          f"another num_ori on {off} of {ne} extrema (angles of the others "
+          f"within {max_abs(ang[same], qa[same]):.3g})", flush=True)
+    # the plain histograms sum in another order; a last-bit difference
+    # decides a tie now and then
+    require(off <= ne // 100 and max_abs(ang[same], qa[same]) <= 1e-4,
+            "K5 orientations differ from the plain version's")
+    check_peak_ties(torch, dev)
+    ms = kernel_ms(lambda: binwin.ori_peaks(*args5))
+    pms = cuda_ms(lambda: binwin.ori_peaks_plain(*args5), reps=10)
     work, union, _ = support_pixels(ex.xpos, ex.ypos, ex.lpos, ex.sigma, L,
                                     h, w)
-    table.add("ori_hist", f"K5 ori_hist {ne} extrema", max_abs(hk, hp), ms,
-              pms, 8 * union + 16 * ne + 144 * ne, OPS_ORI_PIXEL * work)
+    table.add("ori_hist", f"K5 ori_peaks {ne} extrema", err, ms, pms,
+              8 * union + 16 * ne + 20 * ne,
+              OPS_ORI_PIXEL * work + OPS_ORI_PEAKS * ne)
+    a_ms = cuda_ms(lambda: ops_ori.assign_orientations(*args5))
+    h_ms = cuda_ms(lambda: binwin.peaks_from_hist(binwin.ori_hist(*args5)))
+    print(f"  assign_orientations at octave {ob}: {a_ms:.6f} ms (events); "
+          f"K5's histograms and the plain peaks after them: {h_ms:.6f} ms",
+          flush=True)
 
     # K6 on the octave's (extremum, orientation) rows
     num_ori, oris = ops_ori.assign_orientations(field, ex.xpos, ex.ypos,
@@ -564,6 +648,119 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     torch.cuda.synchronize()
 
 
+def check_refine_compact(torch, dog, cands, rp, cap: int, iters: int,
+                         table: Table):
+    """K4 as the path calls it, refinement and compaction in one entry (two
+    kernels): bit for bit against ops/extrema.py:compact_extrema of the
+    per-candidate kernel's outputs and of the plain version's (sigma within
+    the per-candidate check's 2 ulp), at the octave's capacity and at one
+    small enough to overflow, and run to run; timed beside the parent's
+    calls, refine then compact_extrema.  Returns the octave's extrema."""
+    from popsift_torch.kernels import refine
+    from popsift_torch.ops import extrema as ops_ext
+
+    def equal(a, b, sigma_ulps=0):
+        return (a.count == b.count and a.overflow == b.overflow
+                and all(torch.equal(getattr(a, k), getattr(b, k))
+                        for k in ("xpos", "ypos", "lpos", "cell"))
+                and ulps(a.sigma, b.sigma) <= sigma_ulps)
+
+    n = cands.count
+    cx, cy, cz = cands.x, cands.y, cands.z + 1
+    kr = refine.refine(dog, cx, cy, cz, rp)
+    ex = refine.refine_compact(dog, cands, rp, cap)
+    small = max(1, ex.count // 3)
+    for c in (small, cap):
+        e = refine.refine_compact(dog, cands, rp, c)
+        require(equal(e, ops_ext.compact_extrema(*kr, c)),
+                f"K4 compacted (cap {c}) differs from compact_extrema of "
+                f"the per-candidate kernel")
+        require(equal(e, refine.refine_compact(dog, cands, rp, c)),
+                "K4 compacted is not deterministic")
+        p = refine.refine_compact_plain(dog, cands, rp, c)
+        require(equal(e, p, sigma_ulps=2),
+                f"K4 compacted (cap {c}) differs from its plain version")
+        print(f"  K4 compacted, cap {c}: {e.count} extrema, overflow "
+              f"{e.overflow}; bit-equal to compact_extrema of the kernel's "
+              f"and of the plain version's per-candidate outputs (sigma "
+              f"{ulps(e.sigma, p.sigma)} ulp)", flush=True)
+    require(small < ex.count, "K4: the small cap did not overflow")
+    ms = kernel_ms(lambda: refine.refine_compact(dog, cands, rp, cap),
+                   per_launch=2)
+    pms = cuda_ms(lambda: refine.refine_compact_plain(dog, cands, rp, cap),
+                  reps=10)
+    parent = cuda_ms(lambda: ops_ext.compact_extrema(
+        *refine.refine(dog, cx, cy, cz, rp), cap))
+    print(f"  K4 refinement + compaction: {ms[0]:.6f} ms (events), device "
+          f"{fmt_ms(ms[1])} ms in two kernels; refine then compact_extrema, "
+          f"the parent's calls: {parent:.6f} ms (events)", flush=True)
+    table.add("refine", f"K4 refine_compact {n} candidates -> {ex.count} "
+              f"extrema (2 kernels)",
+              max(max_abs(ex.xpos, p.xpos), max_abs(ex.ypos, p.ypos),
+                  max_abs(ex.sigma, p.sigma)), ms, pms,
+              n * 12 + iters * 27 * 4 + 20 * ex.count + 8,
+              OPS_REFINE_ITER * iters)
+    return ex
+
+
+def tie_rich_histograms(torch) -> np.ndarray:
+    """(n, 36) float32 orientation histograms whose peaks tie exactly:
+    flat ones (no peak); two to five equal spikes, whose smoothed peaks are
+    equal to the bit because each bin's arithmetic depends only on its
+    neighbours' values (the lower bin wins); adjacent equal bins; a second
+    peak exactly at 0.8 of the highest, and one float step below it (found
+    with the plain version, whose arithmetic the card's repeats); and
+    random histograms of four levels.  The plain version is
+    popsift_torch.kernels.binwin.peak_candidates."""
+    from popsift_torch.kernels.binwin import peak_candidates
+
+    def spikes(pos, height, base=0.0):
+        h = np.full(36, base, np.float32)
+        h[list(pos)] = height
+        return h
+
+    rows = [np.full(36, c, np.float32) for c in (0.0, 1.0, 3.5, 1e-30)]
+    for pos in ((3, 21), (0, 18), (35, 17), (5, 14, 23, 32),
+                (1, 8, 15, 22, 29), (10, 11), (10, 11, 12), (0, 35)):
+        rows += [spikes(pos, 2.0), spikes(pos, 0.7, base=0.1)]
+    a = np.float32(2.0)
+    steps = np.arange(-4096, 4097)
+    b = (np.float32(0.8) * a).view(np.int32) + steps
+    hist = np.zeros((steps.size, 36), np.float32)
+    hist[:, 4] = a
+    hist[:, 22] = b.astype(np.int32).view(np.float32)
+    _, yval = peak_candidates(torch.as_tensor(hist))
+    line = yval[:, 4] * 0.8
+    below = torch.nextafter(line, torch.full_like(line, -np.inf))
+    for hit in (yval[:, 22] == line, yval[:, 22] == below):
+        idx = torch.nonzero(hit).reshape(-1)
+        require(idx.numel() > 0, "no histogram with a peak at (or just "
+                "below) 0.8 of the highest")
+        rows.append(hist[int(idx[0])])
+    rng = np.random.default_rng(17)
+    rows += list((rng.integers(0, 4, (64, 36)) * 0.5).astype(np.float32))
+    return np.stack(rows)
+
+
+def check_peak_ties(torch, dev) -> None:
+    """K5's epilogue on the tie-rich histograms, bit for bit against the
+    plain version on the card and on the CPU."""
+    from popsift_torch.kernels import binwin
+
+    h = tie_rich_histograms(torch)
+    num, ang = binwin.peaks_of_hist(torch.as_tensor(h, device=dev))
+    pn, pa = binwin.peaks_from_hist(torch.as_tensor(h, device=dev))
+    cn, ca = binwin.peaks_from_hist(torch.as_tensor(h))
+    require(torch.equal(num, pn) and torch.equal(ang, pa)
+            and torch.equal(num.cpu(), cn) and torch.equal(ang.cpu(), ca),
+            "K5's epilogue differs from the plain version on tie-rich "
+            "histograms")
+    print(f"  K5's epilogue on {h.shape[0]} tie-rich histograms: bit-equal "
+          f"to the plain version on the card and on the CPU (num_ori "
+          f"{np.bincount(num.cpu().numpy(), minlength=5).tolist()} for "
+          f"0-4)", flush=True)
+
+
 def check_blur_chain(torch, o, stack, dog, filters, spans,
                      table: Table) -> None:
     """K1's chain entry on octave ``o`` (``stack`` and ``dog`` are what the
@@ -584,7 +781,7 @@ def check_blur_chain(torch, o, stack, dog, filters, spans,
     ms = kernel_ms(lambda: blur.blur_chain(lvl0, filters, spans))
     print(f"  K1 chain entry at octave {o} ({h}x{w}, {blocks} blocks of "
           f"{rows} rows): bit-equal to K1's plain version per level; "
-          f"{ms[0]:.6f} ms, device {ms[1]:.6f} ms", flush=True)
+          f"{ms[0]:.6f} ms, device {fmt_ms(ms[1])} ms", flush=True)
     if "blur_chain" in table.rows:
         return
     px = h * w
@@ -711,20 +908,27 @@ def check_stack_kernels(torch, plan, o, stack, ex, table: Table,
     and against their plain versions (K5's and K6's tolerances)."""
     from popsift_torch import extract as ext
     from popsift_torch.kernels import binwin, grad
-    from popsift_torch.ops import orientation as ops_ori
 
     L, h, w = stack.shape
     field = grad.grad_field(stack)
     a10 = (stack, ex.xpos, ex.ypos, ex.lpos, ex.sigma)
-    hk = binwin.ori_hist_stack(*a10)
-    require(torch.equal(hk, binwin.ori_hist(field, *a10[1:])),
+    hk, h5, hk2 = (torch.empty((ex.count, 36), dtype=torch.float32,
+                               device=stack.device) for _ in range(3))
+    num_ori, oris = binwin.ori_peaks_stack(*a10, hist=hk)
+    n5, o5 = binwin.ori_peaks(field, *a10[1:], hist=h5)
+    require(torch.equal(hk, h5) and torch.equal(num_ori, n5)
+            and torch.equal(oris, o5),
             f"K10 differs from K5 on K2's field at octave {o}")
-    require(torch.equal(hk, binwin.ori_hist_stack(*a10)),
-            "K10 is not deterministic")
+    n2, o2 = binwin.ori_peaks_stack(*a10, hist=hk2)
+    require(torch.equal(hk, hk2) and torch.equal(num_ori, n2)
+            and torch.equal(oris, o2), "K10 is not deterministic")
+    pn, po = binwin.peaks_from_hist(hk)
+    require(torch.equal(num_ori, pn) and torch.equal(oris, po),
+            f"K10: num_ori or angles differ from peaks_from_hist of its own "
+            f"histograms at octave {o}")
     hp = binwin.ori_hist_stack_plain(*a10)
     require(torch.allclose(hk, hp, rtol=1e-5, atol=1e-6),
             f"K10 histograms differ by {max_abs(hk, hp):.3g}")
-    num_ori, oris = ops_ori.assign_orientations(field, *a10[1:])
     feat, ang, _ = ext.descriptor_rows(plan, o, num_ori, oris)
     half = plan.desc_win // 2
     rows = tuple(v[feat].contiguous() for v in a10[1:]) + (ang.contiguous(),)
@@ -750,11 +954,11 @@ def check_stack_kernels(torch, plan, o, stack, ex, table: Table,
     if not timed:
         return
     work, _, nbr = support_pixels(*a10[1:], L, h, w)
-    ms = kernel_ms(lambda: binwin.ori_hist_stack(*a10))
-    pms = cuda_ms(lambda: binwin.ori_hist_stack_plain(*a10), reps=10)
-    table.add("ori_hist_stack", f"K10 ori_hist_stack {ne} extrema",
-              max_abs(hk, hp), ms, pms, 4 * nbr + 16 * ne + 144 * ne,
-              (OPS_ORI_PIXEL + OPS_GRAD) * work)
+    ms = kernel_ms(lambda: binwin.ori_peaks_stack(*a10))
+    pms = cuda_ms(lambda: binwin.ori_peaks_stack_plain(*a10), reps=10)
+    table.add("ori_hist_stack", f"K10 ori_peaks_stack {ne} extrema",
+              max_abs(hk, hp), ms, pms, 4 * nbr + 16 * ne + 20 * ne,
+              (OPS_ORI_PIXEL + OPS_GRAD) * work + OPS_ORI_PEAKS * ne)
     work, _, nbr = support_pixels(*rows[:4], L, h, w, ang=rows[4],
                                   half=half)
     ms = kernel_ms(lambda: binwin.desc_loop_stack(stack, *rows, half))
@@ -766,11 +970,11 @@ def check_stack_kernels(torch, plan, o, stack, ex, table: Table,
 
     def field_path():
         f = grad.grad_field(stack)
-        binwin.ori_hist(f, *a10[1:])
+        binwin.ori_peaks(f, *a10[1:])
         binwin.desc_loop(f, *rows, half)
 
     def stack_path():
-        binwin.ori_hist_stack(*a10)
+        binwin.ori_peaks_stack(*a10)
         binwin.desc_loop_stack(stack, *rows, half)
     print(f"  K2 + K5 + K6 on this octave: {cuda_ms(field_path):.6f} ms; "
           f"K10 + K11: {cuda_ms(stack_path):.6f} ms", flush=True)
@@ -834,7 +1038,7 @@ def check_chain(torch, plan, gauss, o, stack, dog, table: Table) -> None:
         t, dt = kernel_ms(lambda: octave.octave_chain(lvl0, filters, spans,
                                                       False, keep))
         print(f"  K7 (level {keep[0]} only) at octave {o}: {t:.6f} ms, "
-              f"device {dt:.6f} ms", flush=True)
+              f"device {fmt_ms(dt)} ms", flush=True)
         return
 
     def per_level():
@@ -1051,6 +1255,30 @@ def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
                 **prof), feats
 
 
+def count_ops(torch, scenes, cfg, device) -> dict:
+    """PyTorch operations the host dispatches per image on a path, nested
+    ones (an aten::to calling aten::copy_) included: the CPU activity of
+    torch.profiler over extract_features of the scenes, the function the
+    pipeline's worker runs, called on this thread (the profiler records
+    the operations of the thread that started it)."""
+    from torch.profiler import ProfilerActivity, profile
+    from popsift_torch.extract import extract_features
+
+    extract_features(scenes[-1], cfg, device=device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for scene in scenes:
+            extract_features(scene, cfg, device=device)
+    ops = {}
+    for e in prof.key_averages():
+        if e.key.startswith("aten::"):
+            ops[e.key] = ops.get(e.key, 0) + e.count
+    n = len(scenes)
+    return dict(aten_ops_per_image=sum(ops.values()) / n,
+                roll_per_image=ops.get("aten::roll", 0) / n,
+                nonzero_per_image=ops.get("aten::nonzero", 0) / n)
+
+
 def profile_path(torch, pt, scenes, cfg, device) -> dict:
     """Where a path's time goes: torch.profiler over the same scenes,
     device time summed by kernel name, and the device's busy share of the
@@ -1078,18 +1306,25 @@ def profile_path(torch, pt, scenes, cfg, device) -> dict:
             by_name[e.key] = (by_name.get(e.key, (0.0, 0))[0] + t, e.count)
     busy = sum(t for t, _ in by_name.values())
     n = len(scenes)
+    op_counts = count_ops(torch, scenes, cfg, device)
     print(f"  profile: wall {wall_ms / n:.3f} ms/image (profiler on), "
-          f"device busy {busy / n:.3f} ms/image", flush=True)
+          f"device busy {busy / n:.3f} ms/image; PyTorch ops per image: "
+          f"{op_counts['aten_ops_per_image']:.2f} (aten::roll "
+          f"{op_counts['roll_per_image']:.2f}, aten::nonzero "
+          f"{op_counts['nonzero_per_image']:.2f})", flush=True)
+    require(op_counts["roll_per_image"] == 0,
+            "torch.roll ran on the path: orientation peaks left K5/K10")
     if busy == 0.0:
         print("  profile: the profiler recorded no device time; device "
               "share not measured", flush=True)
-        return dict(profile_wall_ms=wall_ms / n, device_busy_ms=None)
+        return dict(profile_wall_ms=wall_ms / n, device_busy_ms=None,
+                    **op_counts)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (t, c) in top:
         print(f"    {t / n:9.4f} ms/image {c / n:8.1f} calls/image  "
               f"{name[:90]}", flush=True)
     return dict(profile_wall_ms=wall_ms / n, device_busy_ms=busy / n,
-                device_idle_share_profiled=1.0 - busy / wall_ms)
+                device_idle_share_profiled=1.0 - busy / wall_ms, **op_counts)
 
 
 def same_keypoints(a, b) -> bool:
@@ -1195,7 +1430,7 @@ def main() -> int:
     log = Path(_lib.build_info["log_path"])
     ptxas_report(log.read_text() if log.exists() else "",
                  ("octave_chain", "desc_loop", "sep_blur", "blur_chain",
-                  "detect"))
+                  "detect", "ori_peaks", "refine", "compact"))
 
     t_scene = time.perf_counter()
     scenes = [make_scene(seed, 1080, 1920) for seed in range(4)]
@@ -1212,6 +1447,13 @@ def main() -> int:
     require(got == DEFAULT_FEATURES, f"features per image {got}, recorded "
             f"{DEFAULT_FEATURES}")
     print(f"  features per image as recorded: {got}", flush=True)
+    rows = tuple(loop_stats["descriptors"])
+    moved = [a - b for a, b in zip(rows, PLAIN_PEAKS_DESCRIPTORS)]
+    print(f"  descriptor rows per image {rows}; with the plain peaks after "
+          f"a histogram-only kernel {PLAIN_PEAKS_DESCRIPTORS}: "
+          + ("unchanged" if not any(moved) else
+             f"moved by {moved}, orientations that K5's summation order "
+             f"decided at a last-bit tie"), flush=True)
 
     notile = mode_config(pt, "notile")
     print("phase 4: the NoTile path, ", end="")

@@ -22,7 +22,7 @@ from .gauss import build_gauss_info
 from .kernels.binwin import stack_kernels_enabled
 from .kernels.detect import detect
 from .kernels.grad import grad_field
-from .kernels.refine import refine, refine_params
+from .kernels.refine import refine_compact, refine_params
 from .ops import descriptors as ops_desc
 from .ops import extrema as ops_ext
 from .ops import orientation as ops_ori
@@ -141,9 +141,9 @@ def octave_keypoints(plan: ExtractorPlan, o: int, dog: torch.Tensor):
     Returns (Candidates, Extrema)."""
     mask = detect(dog, plan.sift_mode, plan.peak_threshold)
     cands = ops_ext.compact_mask(mask, plan.cand_caps[o])
-    refined = refine(dog, cands.x, cands.y, cands.z + 1,
-                     refine_params_for(plan, o, dog.shape[0]))
-    return cands, ops_ext.compact_extrema(*refined, plan.ext_caps[o])
+    return cands, refine_compact(dog, cands,
+                                 refine_params_for(plan, o, dog.shape[0]),
+                                 plan.ext_caps[o])
 
 
 def descriptor_rows(plan: ExtractorPlan, o: int, num_ori: torch.Tensor,

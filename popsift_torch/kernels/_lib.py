@@ -41,16 +41,18 @@ _SIGNATURES = {
     "psk_blur_chain": [_P, _P, _I, _I, _I, _P, _P, _P],
     "psk_grad_field": [_P, _P, _I, _I, _I, _P],
     "psk_detect": [_P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
-    "psk_refine": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                   _F, _F, _F, _I, _P, _P, _P, _P, _P, _P, _P],
-    "psk_ori_hist": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "psk_refine": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "psk_refine_compact": [_P, _P, _I, _P, _I, _P, _P, _P],
+    "psk_ori_hist": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "psk_ori_peaks_of_hist": [_P, _I, _P, _P, _P],
     "psk_desc_loop": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "psk_octave_chain": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
                          _I, _P],
     "psk_gather_windows": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "psk_desc_grid": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                       _P, _P],
-    "psk_ori_hist_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "psk_ori_hist_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                           _P],
     "psk_desc_loop_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P,
                             _P],
     "psk_desc_grid_rounded": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -172,18 +174,25 @@ def library(device: torch.device) -> ctypes.CDLL:
 
 
 def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The device's current stream, as the raw pointer PyTorch keeps (the
+    public torch.cuda.current_stream(device).cuda_stream builds a Stream
+    object, about 10 us on the H100's host)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
-def call(name: str, device: torch.device, *args) -> None:
-    """Launch C entry ``psk_<name>`` and raise on a CUDA error."""
+def call(name: str, device: torch.device, *args,
+         count_as: str | None = None) -> None:
+    """Launch C entry ``psk_<name>``, raise on a CUDA error, and count the
+    launch under ``count_as`` (``name`` by default)."""
     lib = library(device)
     rc = getattr(lib, "psk_" + name)(*args, stream(device))
     if rc != 0:
         msg = lib.psk_error_string(rc).decode()
         raise RuntimeError(f"popsift_torch kernel {name}: CUDA error "
                            f"{rc} ({msg})")
-    count(name)
+    count(count_as or name)
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

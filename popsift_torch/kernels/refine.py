@@ -5,17 +5,24 @@ kernels/refine_batch.py:gather27_batch_pallas together with the loop of
 ops/extrema.py:refine_extrema_multi that drives them: up to 5 iterations
 of the closed-form 3x3 solve (s_solve.h:25-86) with the per-SiftMode step
 rule (s_extrema.cu:145-298), then the move, verify, contrast and edge
-tests.  Returns per candidate ``(xn, yn, lpos, sigma, cell, ok)``.
+tests.  :func:`refine_compact`, the extraction's entry, also compacts the
+survivors in candidate order (ops/extrema.py:compact_extrema) and returns
+an :class:`~popsift_torch.ops.extrema.Extrema`; :func:`refine` returns
+the per-candidate ``(xn, yn, lpos, sigma, cell, ok)``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
+import threading
 
 import numpy as np
 import torch
 
 from ..config import SiftMode
+from ..ops.extrema import Candidates, Extrema, compact_extrema
 from . import _lib
 
 MAX_ITERATIONS = 5  # s_extrema.cu:362
@@ -49,6 +56,7 @@ class RefineParams:
         return max(-(-self.width // 128) * 128, 256)
 
 
+@functools.lru_cache(maxsize=64)
 def refine_params(sift_mode, width, height, n_layers, sigma0, sigma_k,
                   peak_threshold, edge_limit, grid_w_div, grid_h_div,
                   grid_width) -> RefineParams:
@@ -220,29 +228,107 @@ def refine_plain(dog: torch.Tensor, cx, cy, cz, p: RefineParams,
     return out + (iters,) if return_iters else out
 
 
+class _ParamsC(ctypes.Structure):
+    """RefineParams as csrc/refine.cu's struct RefineParams lays it out."""
+
+    _fields_ = [(k, ctypes.c_int) for k in ("H", "W", "Hp", "Wp",
+                                            "n_layers", "mode")] \
+        + [(k, ctypes.c_float) for k in ("sigma0", "sigma_k", "contr_thr",
+                                         "edge_thr", "gwd", "ghd")] \
+        + [("grid_width", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=64)
+def _params_c(p: RefineParams) -> _ParamsC:
+    return _ParamsC(p.height, p.width, p.hp, p.wp, p.n_layers,
+                    _MODE_CODE[p.sift_mode], p.sigma0, p.sigma_k,
+                    p.contr_thr, p.edge_thr, p.gwd, p.ghd, p.grid_width)
+
+
+def _check_dog(name: str, dog: torch.Tensor, p: RefineParams) -> None:
+    if dog.dim() != 3 or dog.dtype != torch.float32:
+        raise ValueError(f"{name} takes an (L, H, W) float32 DoG")
+    if tuple(dog.shape[1:]) != (p.height, p.width):
+        raise ValueError(f"{name}: DoG dims differ from the parameters")
+
+
 def refine(dog: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
            cz: torch.Tensor, p: RefineParams):
-    """Refine candidates at integer (cx, cy, cz); cz is the DoG layer."""
-    if dog.dim() != 3 or dog.dtype != torch.float32:
-        raise ValueError("refine takes an (L, H, W) float32 DoG")
-    if tuple(dog.shape[1:]) != (p.height, p.width):
-        raise ValueError("refine: DoG dims differ from the parameters")
+    """Refine candidates at integer (cx, cy, cz); cz is the DoG layer.
+    Per candidate ``(xn, yn, lpos, sigma, cell, ok)``."""
+    _check_dog("refine", dog, p)
     if dog.device.type == "cpu":
         return refine_plain(dog, cx, cy, cz, p)
     n = int(cx.shape[0])
-    cx, cy, cz = (t.to(torch.int32).contiguous() for t in (cx, cy, cz))
-    dev = _lib.check_cuda("refine", dog, cx, cy, cz)
+    # the kernel takes compact_mask's (mask layer, y, x) rows
+    zyx = torch.stack((cz - 1, cy, cx), dim=1).to(torch.int32).contiguous()
+    dev = _lib.check_cuda("refine", dog, zyx)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     xn, yn, sigma = (torch.empty(n, **f32) for _ in range(3))
-    lpos, cell = torch.empty(n, **i32), torch.empty(n, **i32)
-    ok = torch.empty(n, dtype=torch.uint8, device=dev)
+    lpos, cell, ok = (torch.empty(n, **i32) for _ in range(3))
     if n:
-        _lib.call("refine", dev, dog.data_ptr(), cx.data_ptr(),
-                  cy.data_ptr(), cz.data_ptr(), n, dog.shape[0], p.height,
-                  p.width, p.hp, p.wp, _MODE_CODE[p.sift_mode], p.sigma0,
-                  p.sigma_k, p.contr_thr, p.edge_thr, p.gwd, p.ghd,
-                  p.grid_width, xn.data_ptr(), yn.data_ptr(),
-                  lpos.data_ptr(), sigma.data_ptr(), cell.data_ptr(),
-                  ok.data_ptr())
+        _lib.call("refine", dev, dog.data_ptr(), zyx.data_ptr(), n,
+                  ctypes.addressof(_params_c(p)), xn.data_ptr(),
+                  yn.data_ptr(), lpos.data_ptr(), sigma.data_ptr(),
+                  cell.data_ptr(), ok.data_ptr())
     return xn, yn, lpos, sigma, cell, ok.to(torch.bool)
+
+
+_status = threading.local()
+
+
+def _status_buffer():
+    """This thread's pinned int32 pair, to which refine_compact's kernel
+    writes (count, overflow) through unified addressing, and a ctypes view
+    of it."""
+    buf = getattr(_status, "buf", None)
+    if buf is None:
+        t = torch.zeros(2, dtype=torch.int32, pin_memory=True)
+        buf = _status.buf = (t, (ctypes.c_int * 2).from_address(t.data_ptr()))
+    return buf
+
+
+def refine_compact_plain(dog: torch.Tensor, cands: Candidates,
+                         p: RefineParams, cap: int) -> Extrema:
+    return compact_extrema(*refine_plain(dog, cands.x, cands.y,
+                                         cands.z + 1, p), cap)
+
+
+def refine_compact(dog: torch.Tensor, cands: Candidates, p: RefineParams,
+                   cap: int) -> Extrema:
+    """Refine ``cands`` (compact_mask's rows) and keep the survivors in
+    candidate order, clamped at ``cap``: :func:`refine` and
+    ops/extrema.py:compact_extrema in one call of two kernels, which
+    returns when the count and overflow are on the host (the one
+    synchronisation)."""
+    _check_dog("refine", dog, p)
+    if cap < 1:
+        raise ValueError("refine_compact: cap must be at least 1")
+    if dog.device.type == "cpu":
+        return refine_compact_plain(dog, cands, p, cap)
+    n = cands.count
+    if n == 0:
+        e = torch.empty(0, dtype=torch.float32, device=dog.device)
+        i = torch.empty(0, dtype=torch.int32, device=dog.device)
+        return Extrema(xpos=e, ypos=e, lpos=i, sigma=e, cell=i, count=0,
+                       overflow=0)
+    zyx = cands.zyx
+    if zyx.dtype != torch.int32 or zyx.shape != (n, 3):
+        raise ValueError("refine_compact takes (count, 3) int32 candidates")
+    dev = _lib.check_cuda("refine", dog, zyx)
+    _lib.library(dev)  # the card's checks come before the pinned buffer's
+    m = min(n, cap)
+    # outputs (5, m), then the kernels' scratch
+    buf = torch.empty(5 * m + 6 * n + -(-n // 32), dtype=torch.int32,
+                      device=dev)
+    status, words = _status_buffer()
+    _lib.call("refine_compact", dev, dog.data_ptr(), zyx.data_ptr(), n,
+              ctypes.addressof(_params_c(p)), cap, buf.data_ptr(),
+              status.data_ptr(), count_as="refine")
+    count, overflow = words
+    ints = buf.as_strided((5, count), (m, 1))
+    xpos, ypos, _, sigma, _ = ints.view(torch.float32).unbind(0)
+    _, _, lpos, _, cell = ints.unbind(0)
+    return Extrema(xpos=xpos, ypos=ypos, lpos=lpos, sigma=sigma, cell=cell,
+                   count=count, overflow=overflow)

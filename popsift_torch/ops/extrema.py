@@ -2,7 +2,8 @@
 
 Detection and the Newton refinement are K3 and K4
 (:mod:`popsift_torch.kernels.detect`, :mod:`popsift_torch.kernels.refine`);
-this module turns their per-voxel and per-candidate outputs into lists.
+this module turns K3's per-voxel mask into a list, and holds the plain
+version of K4's compaction (:func:`compact_extrema`).
 Shapes are dynamic here: candidate and extremum lists hold exactly the
 kept entries, in raster (z, y, x) order, clamped at the plan's capacities
 with the number dropped reported as ``overflow`` (the reference clamps
@@ -46,11 +47,22 @@ def _tally(n: int) -> None:
 
 
 class Candidates(NamedTuple):
-    x: torch.Tensor      # (count,) i32
-    y: torch.Tensor      # (count,) i32
-    z: torch.Tensor      # (count,) i32 mask layer (DoG layer - 1)
+    zyx: torch.Tensor    # (count, 3) i32 rows (mask layer, y, x); the
+    #                      mask layer is the DoG layer - 1
     count: int
     overflow: int
+
+    @property
+    def x(self) -> torch.Tensor:
+        return self.zyx[:, 2]
+
+    @property
+    def y(self) -> torch.Tensor:
+        return self.zyx[:, 1]
+
+    @property
+    def z(self) -> torch.Tensor:
+        return self.zyx[:, 0]
 
 
 class Extrema(NamedTuple):
@@ -83,9 +95,8 @@ def compact_mask(mask: torch.Tensor, cap: int) -> Candidates:
     kept = int(nz.shape[0])
     _tally(total - kept)
     count = min(kept, cap)
-    nz = nz[:count].to(torch.int32)
-    return Candidates(x=nz[:, 2], y=nz[:, 1], z=nz[:, 0], count=count,
-                      overflow=total - count)
+    return Candidates(zyx=nz[:count].to(torch.int32).contiguous(),
+                      count=count, overflow=total - count)
 
 
 def compact_extrema(xn, yn, lpos, sigma, cell, ok, cap: int) -> Extrema:

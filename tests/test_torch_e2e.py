@@ -59,9 +59,8 @@ import popsift_torch  # noqa: E402
 from popsift_torch import extract as text  # noqa: E402
 from popsift_torch.features import assemble_features  # noqa: E402
 from popsift_torch.gauss import build_gauss_info  # noqa: E402
-from popsift_torch.kernels.binwin import ori_hist  # noqa: E402
+from popsift_torch.kernels.binwin import ori_hist, peak_candidates  # noqa: E402
 from popsift_torch.kernels.grad import grad_field  # noqa: E402
-from popsift_torch.ops import orientation as tori  # noqa: E402
 from popsift_torch.ops import pyramid as tpyr  # noqa: E402
 
 IMAGES = ["textured", "blob", "hopper"]
@@ -150,7 +149,7 @@ def _tied_features(img) -> np.ndarray:
             continue
         hist = ori_hist(grad_field(stack), ext.xpos, ext.ypos,
                         ext.lpos, ext.sigma)
-        _, yval = tori.peak_candidates(hist)
+        _, yval = peak_candidates(hist)
         for row in torch.sort(yval, dim=-1, descending=True).values.numpy():
             peaks = row[np.isfinite(row)].astype(np.float64)
             if peaks.size == 0:

@@ -27,7 +27,7 @@ from popsift_tpu.ops import pyramid as jpyr  # noqa: E402
 from popsift_torch import config as tcfg  # noqa: E402
 from popsift_torch import extract as text  # noqa: E402
 from popsift_torch.kernels.detect import detect  # noqa: E402
-from popsift_torch.kernels.refine import refine  # noqa: E402
+from popsift_torch.kernels.refine import refine, refine_compact  # noqa: E402
 from popsift_torch.ops import extrema as tex  # noqa: E402
 
 MODES = ["popsift", "vlfeat", "opencv"]
@@ -164,3 +164,48 @@ def test_refinement_matches(mode, o):
                                   np.asarray(jext_.lpos)[:ext.count])
     np.testing.assert_allclose(ext.xpos.numpy(),
                                np.asarray(jext_.xpos)[:ext.count], atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("o", [1, 2])
+def test_compacted_refinement_matches(mode, o):
+    """K4's compacting entry (refine_compact; its plain form on the CPU)
+    against JAX refine_extrema_multi + compact_extrema on the JAX
+    candidates' DoG, with a capacity that overflows: the same count and
+    overflow, lpos and cell exactly, positions and sigma as in
+    test_refinement_matches."""
+    plan, dogs = _jax_dogs(120, 160)
+    _, jplan, tplan = _plans(mode, 160, 120)
+    _, (jx, jy, jz, jvalid, jcount, _) = _jax_detect(mode, o)
+    w, h = jplan.dims[o]
+    g = jplan.filter_grid_size
+    dog = dogs[o]
+
+    def fn(d, cx, cy, cz, cv):
+        return jex.refine_extrema_multi(
+            [d], [(cx, cy, cz + 1, cv)], jplan.sift_mode, jplan.sigma0,
+            jplan.sigma_k, jplan.peak_threshold, jplan.edge_limit,
+            [(w / g, h / g)], g, true_dims=[(w, h)])[0]
+
+    ref = jax.jit(fn)(dog, jx, jy, jz, jvalid)
+    kept = int(np.asarray(ref[5])[:int(jcount)].sum())
+    assert kept > 2
+    cap = kept - 2
+    jext_ = jax.jit(lambda *a: jex.compact_extrema(*a, cap))(*ref)
+
+    mask = detect(torch.as_tensor(dog), tplan.sift_mode, tplan.peak_threshold)
+    cands = tex.compact_mask(mask, tplan.cand_caps[o])
+    assert cands.count == int(jcount)
+    p = text.refine_params_for(tplan, o, dog.shape[0])
+    ext = refine_compact(torch.as_tensor(dog), cands, p, cap)
+    assert (ext.count, ext.overflow) == (int(jext_.count),
+                                         int(jext_.overflow)) == (cap, 2)
+    for k in ("lpos", "cell"):
+        np.testing.assert_array_equal(getattr(ext, k).numpy(),
+                                      np.asarray(getattr(jext_, k))[:cap])
+    for k in ("xpos", "ypos"):
+        np.testing.assert_allclose(getattr(ext, k).numpy(),
+                                   np.asarray(getattr(jext_, k))[:cap],
+                                   rtol=0, atol=1e-4)
+    np.testing.assert_allclose(ext.sigma.numpy(),
+                               np.asarray(jext_.sigma)[:cap], rtol=1e-5)

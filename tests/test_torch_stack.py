@@ -230,7 +230,7 @@ def test_switch_is_read_once_per_image(textured_image, monkeypatch):
         calls.append(None)
         return real(stack, *args)
     monkeypatch.setattr(tdesc, "desc_loop_stack", spy)
-    monkeypatch.setattr(tori, "ori_hist", _no_field)
+    monkeypatch.setattr(tori, "ori_peaks", _no_field)
     monkeypatch.setattr(tdesc, "desc_loop", _no_field)
     feats = text.extract_features(textured_image, popsift_torch.Config(),
                                   device="cpu")
@@ -282,13 +282,13 @@ def test_stack_path_takes_every_octave(textured_image, monkeypatch):
                           textured_image.shape[0])
     assert min(w for w, _ in plan.dims) < 384
     calls = []
-    real = binwin.ori_hist_stack
+    real = binwin.ori_peaks_stack
 
     def spy(stack, *args):
         calls.append(tuple(stack.shape))
         return real(stack, *args)
-    monkeypatch.setattr(tori, "ori_hist_stack", spy)
-    monkeypatch.setattr(tori, "ori_hist", _no_field)
+    monkeypatch.setattr(tori, "ori_peaks_stack", spy)
+    monkeypatch.setattr(tori, "ori_peaks", _no_field)
     text.extract_features(textured_image, popsift_torch.Config(),
                           device="cpu")
     assert calls and all(s[2] < 384 for s in calls)

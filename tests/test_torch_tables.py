@@ -4,6 +4,7 @@ the port's import boundary and its refusal to fall back to the CPU."""
 import dataclasses
 import enum
 import os
+import re
 import subprocess
 import sys
 
@@ -23,6 +24,7 @@ from popsift_torch import constants as tconst  # noqa: E402
 from popsift_torch import extract as text  # noqa: E402
 from popsift_torch import gauss as tgauss  # noqa: E402
 from popsift_torch import tables  # noqa: E402
+from popsift_torch.ops.extrema import Candidates  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -256,11 +258,40 @@ def test_wrappers_take_the_kernel_path_off_the_cpu(monkeypatch):
                                             32, 16),
         lambda: desc_grid.desc_iloop(meta(3, 8, 128),
                                      *(meta(3) for _ in range(6)), 32, 16),
+        lambda: binwin.ori_peaks(meta(12, 16, 32), meta(3), meta(3),
+                                 meta(3, dtype=torch.int32), meta(3),
+                                 hist=meta(3, 36)),
+        lambda: binwin.ori_peaks_stack(meta(6, 16, 32), meta(3), meta(3),
+                                       meta(3, dtype=torch.int32), meta(3)),
+        lambda: binwin.peaks_of_hist(meta(3, 36)),
+        lambda: refine.refine_compact(
+            meta(5, 16, 32), Candidates(meta(3, 3, dtype=torch.int32), 3, 0),
+            p, 2),
     ]
     for c in calls:
         with pytest.raises(Refused):
             c()
     assert _lib.launches() == before
+
+
+def test_ctypes_signatures_match_the_c_entries():
+    """Each declared ctypes signature has one argument per parameter of its
+    C entry in csrc/*.cu, the stream included (a missing one would pass
+    the stream as a 32-bit int)."""
+    from popsift_torch.kernels import _lib
+
+    decls = {}
+    for src in _lib._sources():
+        text_ = src.read_text()
+        for m in re.finditer(r"PSK_API\s+[\w\s\*]+?\b(psk_\w+)\s*\(([^)]*)\)",
+                             text_):
+            params = [a for a in m.group(2).split(",") if a.strip()]
+            decls[m.group(1)] = len(params)
+    assert set(_lib._SIGNATURES) <= set(decls)
+    for name, argtypes in _lib._SIGNATURES.items():
+        assert len(argtypes) == decls[name], name
+    for name in _lib.KERNELS:
+        assert f"psk_{name}" in _lib._SIGNATURES
 
 
 @pytest.mark.parametrize("mutate", [

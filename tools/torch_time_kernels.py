@@ -6,17 +6,30 @@ two trees on the same card.
 ``--root`` is the checkout whose popsift_torch is timed (this repository
 by default); run the tool in turns for two checkouts (A, B, B, A) in one
 run on the card, the parent unpacked with ``git archive`` into
-``build/popsift_torch/``.  ``--kernels`` picks from K1, K3, K7, K6 and K11
-(all by default).  It uses only functions that every version of the port
-has, on chip_smoke.py's seed-0 1080p scene:
+``build/popsift_torch/``.  ``--kernels`` picks from K1, K2, K3, K4, K5,
+K10, K7, K6, K11 and ops (all by default).  It uses only functions that
+every version of the port since K1's chain entry (``blur_chain``) has, on
+chip_smoke.py's seed-0 1080p scene:
 
 - K1: octave 0's level 0 (x255), the span-14 level with its DoG at
   octave 0, and levels 1..L-1 of each octave that K7 does not take
   (``ops/pyramid.py:per_level_chain``, the form the path runs there: K1
   per level, or its chain entry);
+- K2: the gradient field of each octave that K7 does not take (4-8 at
+  1080p), where the default path launches it;
 - K3: every octave;
+- K4: refinement and compaction at the busiest octave, as
+  ``extract.octave_keypoints`` less detection and the candidates'
+  compaction (``compact_mask(detect(...))``), both timed;
+- K5 and K10: ``ops/orientation.assign_orientations`` at the busiest
+  octave, from the field and from the stack (the histograms and the
+  peaks, whatever runs them);
 - K7: octave 0, both emit forms;
-- K6 and K11: the descriptor rows of the busiest octave.
+- K6 and K11: the descriptor rows of the busiest octave;
+- ops: the PyTorch operations per image of the default path
+  (``chip_smoke.count_ops`` over the four 1080p scenes), and per scene
+  the features, descriptor rows and a digest of them (equal digests:
+  bit-identical features).
 
 Each gets two times of one call: between CUDA events (chip_smoke.cuda_ms,
 the median of 20 calls, 50 for K6/K11), and on the device: the library
@@ -30,23 +43,32 @@ most).  The card's name and power limit are printed first.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import sys
+import time
 from pathlib import Path
 
+import numpy as np
+
 HERE = Path(__file__).resolve().parents[1]
-KERNELS = ("K1", "K3", "K7", "K6", "K11")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K10", "K7", "K6", "K11", "ops")
 
 
 def library_spans(torch, fn, calls: int) -> list[float]:
     """Device durations (us) of the library's kernel records over
-    ``calls`` calls of ``fn``."""
+    ``calls`` calls of ``fn``.  The profile holds 50 ms of idle host time
+    before the first call and after the last kernel ends, because the
+    profiler drops the records that its clock places outside its window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(0.05)
     return [e.time_range.elapsed_us() for e in prof.events()
             if e.device_type == DeviceType.CUDA
             and e.name.removeprefix("void ").startswith(
@@ -88,6 +110,7 @@ def main() -> int:
     from popsift_torch import extract as ext
     from popsift_torch.gauss import build_gauss_info
     from popsift_torch.kernels import _lib, binwin, blur, detect, grad, octave
+    from popsift_torch.ops import extrema as ops_ext
     from popsift_torch.ops import orientation as ops_ori
     from popsift_torch.ops import pyramid as ops_pyr
     assert Path(pt.__file__).resolve().is_relative_to(root)
@@ -138,6 +161,13 @@ def main() -> int:
             lvl = st[0].contiguous()
             report(f"K1 octave {o} {tuple(lvl.shape)}, levels 1-{L - 1}",
                    lambda: ops_pyr.per_level_chain(lvl, plan.levels, gauss))
+    if "K2" in want:
+        for o, (st, _) in enumerate(octaves):
+            if ops_pyr.chain_eligible(st.shape[1], st.shape[2], spans):
+                continue
+            bound = 12 * st.numel() / cs.HBM_BYTES_PER_S * 1e3
+            report(f"K2 octave {o} {tuple(st.shape)} (bound {bound:.7f} ms, "
+                   f"bytes)", lambda: grad.grad_field(st))
     if "K3" in want:
         for o, (_, dg) in enumerate(octaves):
             report(f"K3 octave {o} {tuple(dg.shape)}",
@@ -150,6 +180,27 @@ def main() -> int:
             report(f"K7 octave 0 {tuple(lvl0.shape)}, {form}",
                    lambda: octave.octave_chain(lvl0, filters, spans,
                                                emit_stack, keep))
+    if "K4" in want:
+        _, o, _, _ = best
+        dg = octaves[o][1]
+        report(f"K3 + compact_mask octave {o}",
+               lambda: ops_ext.compact_mask(
+                   detect.detect(dg, plan.sift_mode, plan.peak_threshold),
+                   plan.cand_caps[o]))
+        report(f"octave_keypoints octave {o} (K3, compact_mask, K4 and its "
+               f"compaction)", lambda: ext.octave_keypoints(plan, o, dg))
+    if "K5" in want or "K10" in want:
+        _, o, stack, ex = best
+        field = grad.grad_field(stack)
+        kp = (ex.xpos, ex.ypos, ex.lpos, ex.sigma)
+        if "K5" in want:
+            report(f"assign_orientations octave {o}, {ex.count} extrema",
+                   lambda: ops_ori.assign_orientations(field, *kp))
+        if "K10" in want:
+            report(f"assign_orientations octave {o}, {ex.count} extrema, "
+                   f"from the stack",
+                   lambda: ops_ori.assign_orientations(None, *kp,
+                                                       stack=stack))
     if "K6" in want or "K11" in want:
         _, o, stack, ex = best
         field = grad.grad_field(stack)
@@ -167,6 +218,20 @@ def main() -> int:
         if "K11" in want:
             report(f"K11 octave {o}, {n} rows",
                    lambda: binwin.desc_loop_stack(stack, *rows, half), 50)
+    if "ops" in want:
+        scenes = [cs.make_scene(seed, 1080, 1920) for seed in range(4)]
+        print(f"default path ops per image: "
+              f"{cs.count_ops(torch, scenes, cfg, dev)}", flush=True)
+        for seed, scene in enumerate(scenes):
+            f = ext.extract_features(scene, cfg, device=dev)
+            h = hashlib.sha256()
+            for k, v in sorted(f.soa().items()):
+                h.update(k.encode())
+                h.update(np.ascontiguousarray(v).tobytes())
+            h.update(np.ascontiguousarray(f.get_descriptors()).tobytes())
+            print(f"scene {seed}: {f.get_feature_count()} features, "
+                  f"{f.get_descriptor_count()} descriptor rows, sha256 "
+                  f"{h.hexdigest()[:16]}", flush=True)
     return 0
 
 
