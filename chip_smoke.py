@@ -27,8 +27,12 @@ JAX nor popsift_tpu.  In order it:
    histograms), loop descriptors (from the field and from the stack; the
    stack kernels also bit for bit against the field kernels on K2's field,
    at octave 0, at the busiest octave and at the octave of the largest
-   sigma), the window gather (both call shapes) and the NoTile, Grid and
-   ILoop descriptors;
+   sigma), the window gather (both call shapes), the NoTile descriptors
+   on its windows, and the Grid and ILoop descriptors read from the stack
+   (against K8's plain windows and the window forms; bit-identical run to
+   run and with every row's taps read through L2 instead of the staged
+   footprint, also timed that way; the share of rows whose footprint
+   exceeds the staging capacity);
    it times both between CUDA events (the median of repeated calls), the
    kernel also by its device time (torch.profiler, the mean), beside the
    kernel's bound;
@@ -51,7 +55,9 @@ JAX nor popsift_tpu.  In order it:
    field-descriptor launch, and features equal to the default path's bit
    for bit; the switch is restored afterwards;
 6. drives the Grid and ILoop paths for one pass each (launches, keypoints
-   equal to the default path's, bit-identical repeat, one profiled pass);
+   equal to the default path's, bit-identical repeat, one profiled pass;
+   no gather_windows launch, counted or in the profile; per scene the
+   descriptor rows whose footprint exceeds the staging capacity);
 7. holds the card's features of a small scene against the plain PyTorch
    versions run on the CPU, for all five paths;
 8. prints the kernel table as one JSON line and, last, the device line.
@@ -123,10 +129,11 @@ NOTILE_PATH = ("sep_blur", "blur_chain", "octave_chain", "grad_field",
 STACK_PATH = ("sep_blur", "blur_chain", "octave_chain", "detect", "refine",
               "ori_hist_stack", "desc_loop_stack")
 GRID_PATH = ("sep_blur", "blur_chain", "octave_chain", "grad_field",
-             "detect", "refine", "ori_hist", "gather_windows",
-             "desc_grid_rounded")
+             "detect", "refine", "ori_hist", "desc_grid_rounded_stack")
 ILOOP_PATH = ("sep_blur", "blur_chain", "octave_chain", "grad_field",
-              "detect", "refine", "ori_hist", "gather_windows", "desc_iloop")
+              "detect", "refine", "ori_hist", "desc_iloop_stack")
+# K12 and K13 read the stack: the Grid and ILoop paths write no windows
+NOT_ON_SAMPLING_PATHS = ("gather_windows",)
 # the kernels the stack path must not launch: it reads no gradient field
 NOT_ON_STACK_PATH = ("grad_field", "ori_hist", "desc_loop")
 STACK_SWITCH = "POPSIFT_TPU_STACK_KERNELS"
@@ -356,10 +363,10 @@ class Table:
                            "popsift_tpu/kernels/binwin.py:656"),
         "desc_loop_stack": ("popsift_torch/csrc/binwin.cu",
                             "popsift_tpu/kernels/binwin.py:703"),
-        "desc_grid_rounded": ("popsift_torch/csrc/desc_grid.cu",
-                              "popsift_tpu/ops/descriptors.py:657"),
-        "desc_iloop": ("popsift_torch/csrc/desc_grid.cu",
-                       "popsift_tpu/ops/descriptors.py:1091"),
+        "desc_grid_rounded_stack": ("popsift_torch/csrc/desc_grid.cu",
+                                    "popsift_tpu/ops/descriptors.py:657"),
+        "desc_iloop_stack": ("popsift_torch/csrc/desc_grid.cu",
+                             "popsift_tpu/ops/descriptors.py:1091"),
     }
 
     def __init__(self):
@@ -1050,7 +1057,7 @@ def check_chain(torch, plan, gauss, o, stack, dog, table: Table) -> None:
 
 def check_windows_and_grid(torch, plan, stack, rows, table: Table) -> None:
     """K8 in both call shapes and K9 on the descriptor rows of one octave,
-    as the NoTile path gives them."""
+    as the NoTile path gives them, then K12 and K13 on the same rows."""
     from popsift_torch.constants import desc_tables_on
     from popsift_torch.kernels import desc_grid, windows
 
@@ -1116,15 +1123,61 @@ def check_windows_and_grid(torch, plan, stack, rows, table: Table) -> None:
               pms, 4 * n * wy * 128 + 4 * 7 * n + 4 * (1600 + 16)
               + 512 * n, n * (1600 * OPS_GRID_SAMPLE + OPS_GRID_TILES))
 
-    # K12 and K13 on the same windows and rows
-    args = args9[:9]
+    check_stack_descriptors(torch, plan, stack, rows, table)
+
+
+def staged_boxes(xs, ys, sg, an, win: int):
+    """Each row's footprint as K12/K13 stage it (footprint_box one pixel
+    wider on each side) and its pixels."""
+    from popsift_torch.kernels import desc_grid
+    half = desc_grid.footprint_half(sg, an) + 1
+    box = desc_grid.footprint_box(xs, ys, sg, an, win, half=half)
+    return box, (box[1] - box[0] + 1) * (box[3] - box[2] + 1)
+
+
+def check_stack_descriptors(torch, plan, stack, rows, table: Table) -> None:
+    """K12 and K13 on the descriptor rows of one octave, read from the
+    stack: against K8's plain windows and the window forms, run to run,
+    and with every row read through L2 (``stage=0``, which is also the
+    design without staging, timed beside the staged one)."""
+    from popsift_torch.kernels import desc_grid, windows
+
+    xs, ys, lps, sg, an = rows
+    L, h, w = stack.shape
+    win = plan.desc_win
+    n = int(xs.shape[0])
+    args = (stack, xs, ys, lps, sg, an, win)
+    _, pix = staged_boxes(xs, ys, sg, an, win)
+    over = int((pix > desc_grid.STAGE_FLOATS).sum())
+    print(f"  K12/K13 footprints of {n} rows: {int(pix.min())}-"
+          f"{int(pix.max())} px staged (median {int(pix.median())}); "
+          f"{over} rows ({100.0 * over / max(n, 1):.2f}%) exceed the "
+          f"staging capacity of {desc_grid.STAGE_FLOATS} px", flush=True)
+    # the compulsory bytes: the distinct stack pixels that the rows' boxes
+    # (without the kernels' one-pixel slack) cover, the five inputs and
+    # the outputs
+    x0, ya = windows.window_origins(xs, ys, win)
+    tb = desc_grid.footprint_box(xs, ys, sg, an, win)
+    union = box_union_pixels(
+        lps.clamp(0, L - 1), (x0 + tb[0]).clamp(0, w - 1),
+        (x0 + tb[1]).clamp(0, w - 1), (ya + tb[2]).clamp(0, h - 1),
+        (ya + tb[3]).clamp(0, h - 1), L, h, w)
+    nbytes = 4 * union + 4 * 5 * n + 512 * n
+    # the samples this run's rows need: Grid's rounded points with a
+    # non-negative triangle weight, ILoop's list, in each of 16 tiles
+    good = int(desc_grid.grid_rounded_points(xs, ys, sg, an)[4].sum())
+    listed = 16 * int(desc_grid.iloop_sample_list(sg, an)[1].sum())
+    print(f"  samples that carry weight: Grid {good} of {n * 16 * 256}, "
+          f"ILoop {listed} of {n * 16 * 1024}", flush=True)
     for name, label, samples, per_sample in (
-            ("desc_grid_rounded", "K12", 16 * 256, OPS_ROUNDED_SAMPLE),
-            ("desc_iloop", "K13", 16 * 1024, OPS_ILOOP_SAMPLE)):
+            ("desc_grid_rounded_stack", "K12", good, OPS_ROUNDED_SAMPLE),
+            ("desc_iloop_stack", "K13", listed, OPS_ILOOP_SAMPLE)):
         kern = getattr(desc_grid, name)
         plain = getattr(desc_grid, name + "_plain")
         k = kern(*args)
         require(torch.equal(k, kern(*args)), f"{label} is not deterministic")
+        require(torch.equal(k, kern(*args, stage=0)),
+                f"{label}: the rows read through L2 differ from the staged")
         p = plain(*args)
         # the plain version sums each tile in another order; a Grid sample
         # whose position lies within a last-bit difference of k + 0.5
@@ -1134,17 +1187,47 @@ def check_windows_and_grid(torch, plan, stack, rows, table: Table) -> None:
         scale = float(p.abs().max())
         row_err = (k - p).abs().amax(dim=1)
         off = int((row_err > 1e-5 * scale).sum())
-        print(f"  {label}: bit-identical run to run; within "
+        print(f"  {label}: bit-identical run to run and through L2; within "
               f"{max_abs(k, p):.3g} of its plain version (largest entry "
               f"{scale:.3g}); {off} of {n} rows beyond 1e-5 of it",
               flush=True)
         require(off <= n // 100 and float(row_err.max()) <= 1e-3 * scale,
                 f"{label} descriptors differ from the plain version")
-        ms = kernel_ms(lambda: kern(*args))
         pms = cuda_ms(lambda: plain(*args), reps=10)
-        table.add(name, f"{label} {name} {n} rows", max_abs(k, p), ms, pms,
-                  4 * n * wy * 128 + 4 * 6 * n + 512 * n,
-                  n * samples * per_sample)
+        table.add(name, f"{label} {name} {n} rows, no staging (stage=0)",
+                  max_abs(k, p), kernel_ms(lambda: kern(*args, stage=0)),
+                  pms, nbytes, samples * per_sample, sub="no_staging")
+        table.add(name, f"{label} {name} {n} rows", max_abs(k, p),
+                  kernel_ms(lambda: kern(*args)), pms, nbytes,
+                  samples * per_sample)
+
+
+@contextlib.contextmanager
+def footprint_tally(tally: list):
+    """While active, each Grid or ILoop descriptor call of the extraction
+    appends (rows, rows whose staged footprint exceeds the staging
+    capacity, largest footprint in px) to ``tally``."""
+    from popsift_torch.kernels import desc_grid
+    from popsift_torch.ops import descriptors as ops_desc
+
+    def tallied(fn):
+        def call(stack, xs, ys, lpos, sigma, ang, win, *a, **k):
+            _, pix = staged_boxes(xs, ys, sigma, ang, win)
+            tally.append((int(pix.numel()),
+                          int((pix > desc_grid.STAGE_FLOATS).sum()),
+                          int(pix.max()) if pix.numel() else 0))
+            return fn(stack, xs, ys, lpos, sigma, ang, win, *a, **k)
+        return call
+
+    names = ("desc_grid_rounded_stack", "desc_iloop_stack")
+    saved = {name: getattr(ops_desc, name) for name in names}
+    for name, fn in saved.items():
+        setattr(ops_desc, name, tallied(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops_desc, name, fn)
 
 
 def features_equal(a, b) -> bool:
@@ -1173,13 +1256,16 @@ MAIN_PATH_PASSES = 5
 
 def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
              device="cuda", passes: int = MAIN_PATH_PASSES,
-             not_launched=()) -> tuple[dict, list]:
+             not_launched=(), not_profiled=(),
+             tally_boxes: bool = False) -> tuple[dict, list]:
     """Phases 3-6: the user-facing entry point on the card with ``cfg``.
     The scenes go through ``passes`` times; the launch counts are those of
     the first pass, and ms per image is the median pass, with the range.
     Every kernel of ``path_kernels`` must have been launched, and none of
-    ``not_launched``.  Returns the path's numbers and the first pass's
-    features."""
+    ``not_launched``; no kernel of the profiled pass may be named after
+    one of ``not_profiled``.  With ``tally_boxes``, prints per scene the
+    descriptor rows whose footprint exceeds K12/K13's staging capacity.
+    Returns the path's numbers and the first pass's features."""
     from popsift_torch import kernels
     from popsift_torch.ops import extrema as ops_ext
 
@@ -1204,11 +1290,16 @@ def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
         pass_ms = [ms_first] + [one_pass(ps)[1] for _ in range(passes - 1)]
         again = ps.enqueue(w, h, scenes[0]).get()
         # per scene: candidates the compaction budget dropped, K1 calls
-        dropped, k1_calls = [], []
+        dropped, k1_calls, boxes = [], [], []
         for scene in scenes:
             kernels.reset_launches()
             ops_ext.reset_budget_dropped()
-            ps.enqueue(w, h, scene).get()
+            tally = []
+            with (footprint_tally(tally) if tally_boxes
+                  else contextlib.nullcontext()):
+                ps.enqueue(w, h, scene).get()
+            boxes.append((sum(t[0] for t in tally), sum(t[1] for t in tally),
+                          max(t[2] for t in tally)) if tally else None)
             dropped.append(ops_ext.budget_dropped())
             n = kernels.launches()
             k1_calls.append(n["sep_blur"] + n["blur_chain"])
@@ -1223,6 +1314,13 @@ def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
     print(f"  launches: {json.dumps(counts)}", flush=True)
     print(f"  per scene: candidates the compaction budget dropped "
           f"{dropped}, K1 calls {k1_calls}", flush=True)
+    if tally_boxes:
+        from popsift_torch.kernels.desc_grid import STAGE_FLOATS
+        print(f"  per scene: descriptor rows whose footprint exceeds the "
+              f"staging capacity of {STAGE_FLOATS} px (share; largest "
+              f"footprint): "
+              + ", ".join(f"{b[1]}/{b[0]} ({100.0 * b[1] / max(b[0], 1):.2f}"
+                          f"%; {b[2]} px)" for b in boxes), flush=True)
     require(tuple(dropped) == BUDGET_DROPPED,
             f"the budget dropped {dropped} candidates, recorded "
             f"{BUDGET_DROPPED}")
@@ -1239,7 +1337,7 @@ def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
     require(features_equal(feats[0], again),
             "the same frame gave different features")
     print("  repeated frame: bit-identical features", flush=True)
-    prof = profile_path(torch, pt, scenes, cfg, device)
+    prof = profile_path(torch, pt, scenes, cfg, device, not_profiled)
     if prof["device_busy_ms"] is not None:
         # busy time is the same with the profiler off; the unprofiled
         # wall is the median pass above
@@ -1249,6 +1347,7 @@ def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
               f"% under the profiler)", flush=True)
     return dict(ms_per_image=ms_img, pass_ms_per_image=pass_ms,
                 counts=counts, budget_dropped=dropped, k1_calls=k1_calls,
+                footprints_over_capacity=[b and b[1] for b in boxes],
                 features=[f.get_feature_count() for f in feats],
                 descriptors=[f.get_descriptor_count() for f in feats],
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1279,10 +1378,11 @@ def count_ops(torch, scenes, cfg, device) -> dict:
                 nonzero_per_image=ops.get("aten::nonzero", 0) / n)
 
 
-def profile_path(torch, pt, scenes, cfg, device) -> dict:
+def profile_path(torch, pt, scenes, cfg, device, absent=()) -> dict:
     """Where a path's time goes: torch.profiler over the same scenes,
     device time summed by kernel name, and the device's busy share of the
-    wall time (kernels and copies; one stream, so they do not overlap)."""
+    wall time (kernels and copies; one stream, so they do not overlap).
+    No kernel's name may hold one of ``absent``."""
     from torch.profiler import ProfilerActivity, profile
 
     h, w = scenes[0].shape
@@ -1316,9 +1416,16 @@ def profile_path(torch, pt, scenes, cfg, device) -> dict:
             "torch.roll ran on the path: orientation peaks left K5/K10")
     if busy == 0.0:
         print("  profile: the profiler recorded no device time; device "
-              "share not measured", flush=True)
+              "share not measured"
+              + (f", kernel names not checked for {absent} (the launch "
+                 f"counts are)" if absent else ""), flush=True)
         return dict(profile_wall_ms=wall_ms / n, device_busy_ms=None,
                     **op_counts)
+    for name in absent:
+        hits = [k for k in by_name if name in k]
+        require(not hits, f"the profile holds {hits}")
+        print(f"  profile: no {name} kernel among the {len(by_name)} "
+              f"names with device time", flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (t, c) in top:
         print(f"    {t / n:9.4f} ms/image {c / n:8.1f} calls/image  "
@@ -1430,7 +1537,8 @@ def main() -> int:
     log = Path(_lib.build_info["log_path"])
     ptxas_report(log.read_text() if log.exists() else "",
                  ("octave_chain", "desc_loop", "sep_blur", "blur_chain",
-                  "detect", "ori_peaks", "refine", "compact"))
+                  "detect", "ori_peaks", "refine", "compact",
+                  "desc_grid_rounded_stack", "desc_iloop_stack"))
 
     t_scene = time.perf_counter()
     scenes = [make_scene(seed, 1080, 1920) for seed in range(4)]
@@ -1481,7 +1589,9 @@ def main() -> int:
         print(f"phase 6: the {mode} path, ", end="")
         stats[mode], feats = run_path(
             torch, pt, scenes, mode_config(pt, mode),
-            f"PopSift(Config(desc_mode={mode}))", kernels, passes=1)
+            f"PopSift(Config(desc_mode={mode}))", kernels, passes=1,
+            not_launched=NOT_ON_SAMPLING_PATHS,
+            not_profiled=NOT_ON_SAMPLING_PATHS, tally_boxes=True)
         require_same_keypoints(loop_feats, feats, mode)
 
     homes = {"default": LOOP_PATH, "notile": NOTILE_PATH,

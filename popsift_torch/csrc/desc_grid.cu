@@ -2,7 +2,7 @@
 // descriptor row: the rotated 40x40 sample grid, four bilinear samples for
 // the rotated gradient, hypotf / atan2f, the desc_gauss weight, the two
 // orientation bins, and the contraction with the triangle tile weights
-// into 4 x 4 x 8 bins.  K12 (Grid) and K13 (ILoop) read the same windows.
+// into 4 x 4 x 8 bins.
 //
 // K9 replaces the XLA contraction popsift_tpu/ops/descriptors.py:
 // grid_descriptors_windowed_mm (and its gather form
@@ -23,32 +23,69 @@
 // (_iloop_body through iloop_descriptors_windowed; s_desc_iloop.cu:
 // 18-130): per tile an axis-aligned 32x32 grid over the rotated tile's
 // bounding box, four bilinear taps per sample (K9's sampler), no angle
-// subtraction.
+// subtraction.  Both read the octave's (L, H, W) stack through K8's
+// exact-origin window of the row (column x0 = round(x) - win/2, rows from
+// ya = 8 floor((round(y) - win/2) / 8), win_y x 128, clamp addressing)
+// without writing it: window pixel (r, c) is
+// plane[clamp(ya + r)][clamp(x0 + c)], and every index, clamp and
+// coordinate stays in window-local terms, so the values are those of K8
+// followed by the window forms.
 //
-// Bound on the H100: device-memory bytes (each block reads its 61,440-byte
-// window once; ~170k operations per NoTile row, ~0.4M per Grid row and
-// ~2M per ILoop row are below the card's flop/byte balance).  Design: the
-// window is copied to dynamic shared memory with 16-byte loads.  K9: each
-// thread computes whole samples and stores (bin, low weight, high weight);
-// the contraction then runs in a fixed order, first over the 16 columns of
-// each x tile (yxb,xt->ytb) and then over the 16 rows of each y tile
-// (ytb,ys->stb), one output per thread.  K12 and K13 walk the 16 tiles in
-// turn: each thread adds its samples of the tile (one for Grid, four for
-// ILoop) into 8 bin registers in a fixed order, and warp b sums bin b over
-// the 256 threads in a fixed order (8 sequential adds per lane, then a
-// butterfly of shuffles).  No atomics, so every result is the same from
-// run to run.
+// Bound on the H100: device-memory bytes for K9 (each block reads its
+// 61,440-byte window once; ~170k operations a row); operations for K12
+// and K13 (~0.25M a Grid row and ~1.5M an ILoop row against the few KB of
+// stack pixels a row's samples reach, most of them shared with
+// neighbouring rows in L2).  Design of K9: the window is copied to
+// dynamic shared memory with 16-byte loads; each thread computes whole
+// samples and stores (bin, low weight, high weight); the contraction then
+// runs in a fixed order, first over the 16 columns of each x tile
+// (yxb,xt->ytb) and then over the 16 rows of each y tile (ytb,ys->stb),
+// one output per thread.
+//
+// Design of K12 and K13: one block of 8 warps per row.  The block stages
+// only the row's footprint, the box of +-(ceil(2.5 bsz sbp + 2) + 1) px
+// around the keypoint in window-local terms (bsz = |cos| + |sin|), clamped
+// to the window: the samples reach 2.5 bsz sbp and the taps one more
+// pixel, and the last pixel is slack for cosf / sinf against torch's
+// (kernels/desc_grid.py:footprint_box is the same formula without it,
+// and the CPU tests show that every tap lies inside).  The box goes to
+// dynamic shared memory, four loads in flight per lane; a row whose box
+// holds more pixels than the launch's capacity reads its taps from the
+// stack through L2 in the same kernel (a block-uniform branch).  Tap
+// indices are clamped to the box, which equals the window-local clamps
+// whenever the box covers the taps and keeps every read inside it; on a
+// row whose box lies inside the image, K13's clamps of the sample
+// coordinates to the image change nothing and are left out.  K13 first
+// compacts the samples of its 32x32 grid that carry weight (|nx| < 1,
+// |ny| < 1: the set depends on the angle alone) into a shared table in
+// ascending order, each entry its offsets times sbp and (nx, ny) (a
+// ballot per 32 samples and a prefix of the counts); the others add
+// exactly +0.0 to sums of non-negative terms, so skipping them changes no
+// bit.  K12 keeps its 256 rotated grid offsets times sbp in a table too
+// (they are the same in every tile) and skips a point whose triangle
+// weight is negative before its taps.  Each warp owns whole tiles (2 of
+// the 16): its lanes walk the tile's samples (the table, or the 256
+// points) in a fixed order, each adding to its two bins in its own column
+// of shared memory, and the tile's bins are summed over the lanes by
+// fixed shuffle butterflies, so no block barrier is paid per tile.  No
+// atomics: every result is the same from run to run.
+// The kernels are bound by instruction issue (about 300 instructions a
+// K13 sample in the sm_90a SASS at --fmad=false: four bilinear taps,
+// hypotf, atan2f, expf, two bins); registers are capped for three blocks
+// an SM.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// K12/K13: three blocks of a row each on an SM (at most 85 registers)
+constexpr int kMinBlocks = 3;
 constexpr int kGrid = 40;
 constexpr int kSamples = kGrid * kGrid;
 constexpr int kWinX = 128;
 constexpr int kTiles = 16;
 constexpr int kBins = 8;
-static_assert(kThreads == 32 * kBins, "tile_bins: one warp per bin");
 
 // Copies row slot's (win_y, 128) window into shared memory, 16 bytes a load.
 __device__ __forceinline__ void load_window(float4* win4, const float* wins,
@@ -166,200 +203,387 @@ desc_grid(const float* __restrict__ wins, int win_y,
 }
 
 
-// The 8 bins of one tile: thread t's partial sums acc are reduced over the
-// block in a fixed order, and out[tile * 8 + b] is written by warp b.
-// part is a [8][kThreads] slice of shared memory that no warp still reads.
-__device__ __forceinline__ void tile_bins(const float (&acc)[kBins],
-                                          float* part, float* out,
-                                          int tile) {
-    const int t = threadIdx.x;
-#pragma unroll
-    for (int b = 0; b < kBins; ++b) part[b * kThreads + t] = acc[b];
-    __syncthreads();
-    const int warp = t >> 5;
-    const int lane = t & 31;
-    float v = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kThreads / 32; ++k)
-        v = v + part[warp * kThreads + lane + 32 * k];
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1) v = v + __shfl_xor_sync(~0u, v, m);
-    if (lane == 0) out[tile * kBins + warp] = v;
-}
-
-// One sample's two orientation bins: acc[fo0] += (1 - do0) * wgt and
-// acc[(fo0 + 1) % 8] += do0 * wgt, with th already in [0, 2 pi).
-__device__ __forceinline__ void add_sample(float (&acc)[kBins], float th,
-                                           float wgt) {
-    const float tth = th * psk::k4RPi;
-    const float fo = floorf(tth);
-    const float do0 = tth - fo;
-    const int fo0 = min(max(static_cast<int>(fo), 0), 7);
-    const int fo1 = (fo0 + 1) & 7;
-    const float lo = (1.0f - do0) * wgt;
-    const float hi = do0 * wgt;
-#pragma unroll
-    for (int b = 0; b < kBins; ++b)
-        acc[b] = acc[b] + ((b == fo0 ? lo : 0.0f) + (b == fo1 ? hi : 0.0f));
-}
-
 __device__ __forceinline__ float wrap_2pi(float th) {
     if (th < 0.0f) th = th + psk::kPi2;
     if (th >= psk::kPi2) th = th - psk::kPi2;
     return th;
 }
 
-__global__ void __launch_bounds__(kThreads)
-desc_grid_rounded(const float* __restrict__ wins, int win_y,
-                  const float* __restrict__ xs, const float* __restrict__ ys,
-                  const float* __restrict__ x0s,
-                  const float* __restrict__ y0s,
-                  const float* __restrict__ sigmas,
-                  const float* __restrict__ angs, int W, int H,
-                  float* __restrict__ out) {
-    extern __shared__ float4 win4[];
-    __shared__ float s_part[2][kBins * kThreads];
-    const float* win = reinterpret_cast<const float*>(win4);
-    const int slot = blockIdx.x;
-    const int t = threadIdx.x;
-    load_window(win4, wins, win_y, slot);
+// A lane's 8 bins of the tile it walks live in shared memory, [warp][bin]
+// [lane] (bank = lane), so a sample adds to its two bins without selects.
+__device__ __forceinline__ void bins_zero(float* bins) {
+#pragma unroll
+    for (int b = 0; b < kBins; ++b) bins[b * 32] = 0.0f;
+}
 
-    const float x = xs[slot];
-    const float y = ys[slot];
-    const int x0 = static_cast<int>(x0s[slot]);
-    const int y0 = static_cast<int>(y0s[slot]);
-    const float a = angs[slot];
-    const float sbp = fabsf(3.0f * sigmas[slot]);
-    const bool ok = sbp > 0.0f;
+// One sample's two orientation bins: bin fo0 += (1 - do0) * wgt and bin
+// (fo0 + 1) % 8 += do0 * wgt, with th already in [0, 2 pi).
+__device__ __forceinline__ void bins_add(float* bins, float th, float wgt) {
+    const float tth = th * psk::k4RPi;
+    const float fo = floorf(tth);
+    const float do0 = tth - fo;
+    const int fo0 = min(max(static_cast<int>(fo), 0), 7);
+    const int fo1 = (fo0 + 1) & 7;
+    bins[fo0 * 32] = bins[fo0 * 32] + (1.0f - do0) * wgt;
+    bins[fo1 * 32] = bins[fo1 * 32] + do0 * wgt;
+}
+
+// The tile's 8 bins, summed over the warp's lanes by a butterfly of
+// shuffles per bin (a fixed order), written by lanes 0-7.
+__device__ __forceinline__ void bins_out(const float* bins, float* out,
+                                         int tile) {
+    const int lane = threadIdx.x & 31;
+    float mine = 0.0f;
+#pragma unroll
+    for (int b = 0; b < kBins; ++b) {
+        float v = bins[b * 32];
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) v = v + __shfl_xor_sync(~0u, v, m);
+        if (lane == b) mine = v;
+    }
+    if (lane < kBins) out[tile * kBins + lane] = mine;
+}
+
+// A row of K12/K13: its plane, K8's window origin (x0, ya) in the plane,
+// the footprint box [bx0, bx1] x [by0, by1] in window-local pixels, and
+// whether the unclamped box lies inside the image (then no sample
+// coordinate reaches the image bounds and their clamps change nothing).
+struct RowWindow {
+    const float* plane;
+    int H, W;
+    int x0, ya;
+    int bx0, bx1, by0, by1;
+    int bw;
+    bool interior;
+};
+
+// K8's window of the row and the row's footprint box (the formula of
+// kernels/desc_grid.py:footprint_box, one pixel wider on each side).
+__device__ __forceinline__ RowWindow row_window(
+        const float* stack, int L, int H, int W, int lpos, float x, float y,
+        float sbp, float bsz, int win, int win_y) {
+    RowWindow r;
+    const int lp = min(max(lpos, 0), L - 1);
+    r.plane = stack + static_cast<size_t>(lp) * H * W;
+    r.H = H;
+    r.W = W;
+    r.x0 = static_cast<int>(rintf(x)) - win / 2;
+    const int y0 = static_cast<int>(rintf(y)) - win / 2;
+    r.ya = y0 - (((y0 % 8) + 8) % 8);
+    const int half =
+        static_cast<int>(fminf(ceilf(2.5f * bsz * sbp + 2.0f), 256.0f)) + 1;
+    const int fx = static_cast<int>(floorf(x - static_cast<float>(r.x0)));
+    const int fy = static_cast<int>(floorf(y - static_cast<float>(r.ya)));
+    r.bx0 = max(fx - half, 0);
+    r.bx1 = min(fx + half, kWinX - 1);
+    r.by0 = max(fy - half, 0);
+    r.by1 = min(fy + half, win_y - 1);
+    r.bw = r.bx1 - r.bx0 + 1;
+    r.interior = r.x0 + fx - half >= 0 && r.x0 + fx + half <= W - 1
+                 && r.ya + fy - half >= 0 && r.ya + fy + half <= H - 1;
+    return r;
+}
+
+// Copies the row's box of K8's window into shared memory: warp w takes
+// box rows w, w + 8, ...; each lane holds up to four loads of a row in
+// flight (x0 has no alignment, so 4-byte loads).
+__device__ __forceinline__ void stage_box(float* box, const RowWindow& r) {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int bh = r.by1 - r.by0 + 1;
+#pragma unroll 2
+    for (int i = warp; i < bh; i += kWarps) {
+        const int yy = min(max(r.ya + r.by0 + i, 0), r.H - 1);
+        const float* src = r.plane + static_cast<size_t>(yy) * r.W;
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int c = lane + 32 * j;
+            v[j] = c < r.bw ? __ldg(src + min(max(r.x0 + r.bx0 + c, 0),
+                                              r.W - 1))
+                            : 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int c = lane + 32 * j;
+            if (c < r.bw) box[i * r.bw + c] = v[j];
+        }
+    }
+}
+
+// Window pixel (yr, xr), both window-local and inside the box: from the
+// staged box, or from the plane with K8's clamp addressing.
+template <bool kStaged>
+__device__ __forceinline__ float window_px(const RowWindow& r,
+                                           const float* box, int yr,
+                                           int xr) {
+    if (kStaged) return box[(yr - r.by0) * r.bw + (xr - r.bx0)];
+    const int yy = min(max(r.ya + yr, 0), r.H - 1);
+    const int xx = min(max(r.x0 + xr, 0), r.W - 1);
+    return __ldg(r.plane + static_cast<size_t>(yy) * r.W + xx);
+}
+
+// _bilinear_win at window-local (px, py): the coordinate clamped to the
+// image bounds in window-local terms (kClamp; a no-op on interior rows),
+// the tap corner to the box (inside the window's [0, 126] x
+// [0, win_y - 2]).
+template <bool kStaged, bool kClamp>
+__device__ __forceinline__ float box_bilinear(const RowWindow& r,
+                                              const float* box, float px,
+                                              float py, float xlo,
+                                              float xhi, float ylo,
+                                              float yhi) {
+    if (kClamp) {
+        px = fminf(fmaxf(px, xlo), xhi);
+        py = fminf(fmaxf(py, ylo), yhi);
+    }
+    const float x0f = floorf(px);
+    const float y0f = floorf(py);
+    const float fx = px - x0f;
+    const float fy = py - y0f;
+    const int xi = min(max(static_cast<int>(x0f), r.bx0), r.bx1 - 1);
+    const int yi = min(max(static_cast<int>(y0f), r.by0), r.by1 - 1);
+    const float v00 = window_px<kStaged>(r, box, yi, xi);
+    const float v01 = window_px<kStaged>(r, box, yi, xi + 1);
+    const float v10 = window_px<kStaged>(r, box, yi + 1, xi);
+    const float v11 = window_px<kStaged>(r, box, yi + 1, xi + 1);
+    return (v00 * (1.0f - fx) + v01 * fx) * (1.0f - fy)
+           + (v10 * (1.0f - fx) + v11 * fx) * fy;
+}
+
+// K12's tiles of this warp (grid_rounded_body, one lane per rounded point
+// in turn).  pts[j]: point j's rotated local-grid offset times sbp, the
+// same in every tile.
+template <bool kStaged>
+__device__ void grid_rounded_tiles(const RowWindow& r, const float* box,
+                                   const float2* pts, float* bins, float x,
+                                   float y, float a, float sbp, bool ok,
+                                   float c, float s, float* dst) {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
     const float safe = ok ? sbp : 1.0f;
-    const float c = cosf(a);
-    const float s = sinf(a);
     const float csbp = c * sbp;
     const float ssbp = s * sbp;
-    // this thread's sample of every tile: (xd, yd) = (t % 16, t / 16) on
-    // the local grid (k + 0.5) / 8 - 1 (s_desc_grid.cu:69)
-    const float u = (static_cast<float>(t & 15) + 0.5f) / 8.0f - 1.0f;
-    const float v = (static_cast<float>(t >> 4) + 0.5f) / 8.0f - 1.0f;
-    const float pixox = c * u - s * v;
-    const float pixoy = c * v + s * u;
-    float* dst = out + static_cast<size_t>(slot) * 128;
-    __syncthreads();
-
+    const int W = r.W;
+    const int H = r.H;
+    // integer taps clipped to the image, then to the window (here: the box)
     auto tap = [&](int yy, int xx) {
-        const int xr = min(max(xx - x0, 0), kWinX - 1);
-        const int yr = min(max(yy - y0, 0), win_y - 1);
-        return win[yr * kWinX + xr];
+        const int xr = min(max(xx - r.x0, r.bx0), r.bx1);
+        const int yr = min(max(yy - r.ya, r.by0), r.by1);
+        return window_px<kStaged>(r, box, yr, xr);
     };
-    for (int tile = 0; tile < kTiles; ++tile) {
+    for (int tile = warp; tile < kTiles; tile += kWarps) {
         const float ox = static_cast<float>(tile & 3) - 1.5f;
         const float oy = static_cast<float>(tile >> 2) - 1.5f;
         // tile centre, then the sample rounded to a pixel (s_desc_grid.cu:71)
         const float ptx = (csbp * ox - ssbp * oy) + x;
         const float pty = (csbp * oy + ssbp * ox) + y;
-        const float px = rintf(ptx + pixox * sbp);
-        const float py = rintf(pty + pixoy * sbp);
-        // recomputed rotated-local coordinates of the rounded pixel
-        const float rx = (px - ptx) / safe;
-        const float ry = (py - pty) / safe;
-        const float nx = c * rx + s * ry;
-        const float ny = c * ry - s * rx;
-        const int ix0 = min(max(static_cast<int>(px), 0), W - 1);
-        const int iy0 = min(max(static_cast<int>(py), 0), H - 1);
-        const float gdx = tap(iy0, min(ix0 + 1, W - 1))
-                          - tap(iy0, max(ix0 - 1, 0));
-        const float gdy = tap(min(iy0 + 1, H - 1), ix0)
-                          - tap(max(iy0 - 1, 0), ix0);
-        const float mod = hypotf(gdx, gdy);
-        const float th = wrap_2pi(atan2f(gdy, gdx) - a);
-        const float dnx = nx + ox;
-        const float dny = ny + oy;
-        const float ww = expf(-(dnx * dnx + dny * dny) / 8.0f);
-        const float wx = 1.0f - fabsf(nx);
-        const float wy = 1.0f - fabsf(ny);
-        const bool good = wx >= 0.0f && wy >= 0.0f && ok;
-        float acc[kBins] = {};
-        add_sample(acc, th, good ? ww * wx * wy * mod : 0.0f);
-        tile_bins(acc, s_part[tile & 1], dst, tile);
+        bins_zero(bins);
+        for (int j = lane; j < 256; j += 32) {
+            const float2 po = pts[j];
+            const float px = rintf(ptx + po.x);
+            const float py = rintf(pty + po.y);
+            // recomputed rotated-local coordinates of the rounded pixel
+            const float rx = (px - ptx) / safe;
+            const float ry = (py - pty) / safe;
+            const float nx = c * rx + s * ry;
+            const float ny = c * ry - s * rx;
+            const float wx = 1.0f - fabsf(nx);
+            const float wy = 1.0f - fabsf(ny);
+            if (!(wx >= 0.0f && wy >= 0.0f && ok)) continue;
+            const int ix0 = min(max(static_cast<int>(px), 0), W - 1);
+            const int iy0 = min(max(static_cast<int>(py), 0), H - 1);
+            const float gdx = tap(iy0, min(ix0 + 1, W - 1))
+                              - tap(iy0, max(ix0 - 1, 0));
+            const float gdy = tap(min(iy0 + 1, H - 1), ix0)
+                              - tap(max(iy0 - 1, 0), ix0);
+            const float mod = hypotf(gdx, gdy);
+            const float th = wrap_2pi(atan2f(gdy, gdx) - a);
+            const float dnx = nx + ox;
+            const float dny = ny + oy;
+            const float ww = expf(-(dnx * dnx + dny * dny) / 8.0f);
+            bins_add(bins, th, ww * wx * wy * mod);
+        }
+        bins_out(bins, dst, tile);
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-desc_iloop(const float* __restrict__ wins, int win_y,
-           const float* __restrict__ xs, const float* __restrict__ ys,
-           const float* __restrict__ x0s, const float* __restrict__ y0s,
-           const float* __restrict__ sigmas,
-           const float* __restrict__ angs, int W, int H,
-           float* __restrict__ out) {
-    constexpr int kPer = 1024 / kThreads;  // samples per thread and tile
-    extern __shared__ float4 win4[];
-    __shared__ float s_part[2][kBins * kThreads];
-    const float* win = reinterpret_cast<const float*>(win4);
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+desc_grid_rounded_stack(const float* __restrict__ stack, int L, int H, int W,
+                        const int* __restrict__ lpos,
+                        const float* __restrict__ xs,
+                        const float* __restrict__ ys,
+                        const float* __restrict__ sigmas,
+                        const float* __restrict__ angs, int win, int win_y,
+                        int capacity, float* __restrict__ out) {
+    extern __shared__ float box[];
+    __shared__ float s_bins[kWarps * kBins * 32];
+    __shared__ float2 s_pts[256];
+    static_assert(kThreads == 256, "one point of the 16x16 grid a thread");
     const int slot = blockIdx.x;
     const int t = threadIdx.x;
-    load_window(win4, wins, win_y, slot);
-
     const float x = xs[slot];
     const float y = ys[slot];
-    const float x0f = x0s[slot];
-    const float y0f = y0s[slot];
     const float a = angs[slot];
     const float sbp = fabsf(3.0f * sigmas[slot]);
     const bool ok = sbp > 0.0f;
     const float c = cosf(a);
     const float s = sinf(a);
+    const RowWindow r = row_window(stack, L, H, W, lpos[slot], x, y, sbp,
+                                   fabsf(c) + fabsf(s), win, win_y);
+    const bool staged = r.bw * (r.by1 - r.by0 + 1) <= capacity;
+    if (staged && ok) stage_box(box, r);
+    {
+        // point (xd, yd) = (t % 16, t / 16) of the local grid
+        // (k + 0.5) / 8 - 1 (s_desc_grid.cu:69), rotated
+        const float u = (static_cast<float>(t & 15) + 0.5f) / 8.0f - 1.0f;
+        const float v = (static_cast<float>(t >> 4) + 0.5f) / 8.0f - 1.0f;
+        const float pixox = c * u - s * v;
+        const float pixoy = c * v + s * u;
+        s_pts[t] = make_float2(pixox * sbp, pixoy * sbp);
+    }
+    __syncthreads();
+    float* dst = out + static_cast<size_t>(slot) * 128;
+    float* bins = s_bins + (t >> 5) * kBins * 32 + (t & 31);
+    if (staged)
+        grid_rounded_tiles<true>(r, box, s_pts, bins, x, y, a, sbp, ok, c, s,
+                                 dst);
+    else
+        grid_rounded_tiles<false>(r, box, s_pts, bins, x, y, a, sbp, ok, c,
+                                  s, dst);
+}
+
+// The offsets (dxg, dyg) of sample k of the 32x32 ILoop grid in SBP
+// units, -bsz + i bsz / 16 (s_desc_iloop.cu:60-75), and its rotated
+// coordinates (nx, ny).
+__device__ __forceinline__ void iloop_point(int k, float bsz, float c,
+                                            float s, float& dxg, float& dyg,
+                                            float& nx, float& ny) {
+    dxg = -bsz + static_cast<float>(k & 31) * bsz / 16.0f;
+    dyg = -bsz + static_cast<float>(k >> 5) * bsz / 16.0f;
+    nx = c * dxg + s * dyg;
+    ny = c * dyg - s * dxg;
+}
+
+// K13's tiles of this warp (iloop_body over the row's list of the samples
+// that carry weight: pts[i] = (dxg sbp, dyg sbp, nx, ny) of the i-th).
+template <bool kStaged, bool kClamp>
+__device__ void iloop_tiles(const RowWindow& r, const float* box,
+                            const float4* pts, int count, float* bins,
+                            float x, float y, float sbp, float c, float s,
+                            float* dst) {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
     const float csbp = c * sbp;
     const float ssbp = s * sbp;
+    const float x0f = static_cast<float>(r.x0);
+    const float y0f = static_cast<float>(r.ya);
     // image bounds in window-local coordinates (texture clamp addressing)
     const float xlo = 0.0f - x0f;
-    const float xhi = static_cast<float>(W - 1) - x0f;
+    const float xhi = static_cast<float>(r.W - 1) - x0f;
     const float ylo = 0.0f - y0f;
-    const float yhi = static_cast<float>(H - 1) - y0f;
-    // this thread's samples k = t + 256 j of the 32x32 grid, the same in
-    // every tile: offsets -bsz + k bsz / 16 (s_desc_iloop.cu:60-75)
-    const float bsz = fabsf(c) + fabsf(s);
-    float offx[kPer], offy[kPer], nxs[kPer], nys[kPer];
-    bool inside[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-        const int k = t + kThreads * j;
-        const float dxg = -bsz + static_cast<float>(k & 31) * bsz / 16.0f;
-        const float dyg = -bsz + static_cast<float>(k >> 5) * bsz / 16.0f;
-        nxs[j] = c * dxg + s * dyg;
-        nys[j] = c * dyg - s * dxg;
-        inside[j] = fabsf(nxs[j]) < 1.0f && fabsf(nys[j]) < 1.0f && ok;
-        offx[j] = dxg * sbp;
-        offy[j] = dyg * sbp;
-    }
-    float* dst = out + static_cast<size_t>(slot) * 128;
-    __syncthreads();
-
+    const float yhi = static_cast<float>(r.H - 1) - y0f;
     auto bil = [&](float px, float py) {
-        return bilinear(win, win_y, px - x0f, py - y0f, xlo, xhi, ylo, yhi);
+        return box_bilinear<kStaged, kClamp>(r, box, px - x0f, py - y0f,
+                                             xlo, xhi, ylo, yhi);
     };
-    for (int tile = 0; tile < kTiles; ++tile) {
+    for (int tile = warp; tile < kTiles; tile += kWarps) {
         const float ox = static_cast<float>(tile & 3) - 1.5f;
         const float oy = static_cast<float>(tile >> 2) - 1.5f;
         const float ptx = csbp * ox - ssbp * oy;
         const float pty = csbp * oy + ssbp * ox;
-        float acc[kBins] = {};
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) {
-            const float jj = (x + ptx) + offx[j];
-            const float ii = (y + pty) + offy[j];
+        bins_zero(bins);
+        for (int i = lane; i < count; i += 32) {
+            const float4 p = pts[i];
+            const float nx = p.z;
+            const float ny = p.w;
+            const float jj = (x + ptx) + p.x;
+            const float ii = (y + pty) + p.y;
             const float gdx = bil(jj + c, ii + s) - bil(jj - c, ii - s);
             const float gdy = bil(jj - s, ii + c) - bil(jj + s, ii - c);
             const float mod = hypotf(gdx, gdy);
             const float th = wrap_2pi(atan2f(gdy, gdx));
-            const float dnx = nxs[j] + ox;
-            const float dny = nys[j] + oy;
+            const float dnx = nx + ox;
+            const float dny = ny + oy;
             const float ww = expf(-(dnx * dnx + dny * dny) / 8.0f);
-            add_sample(acc, th,
-                       inside[j] ? ww * (1.0f - fabsf(nxs[j]))
-                                       * (1.0f - fabsf(nys[j])) * mod
-                                 : 0.0f);
+            bins_add(bins, th,
+                     ww * (1.0f - fabsf(nx)) * (1.0f - fabsf(ny)) * mod);
         }
-        tile_bins(acc, s_part[tile & 1], dst, tile);
+        bins_out(bins, dst, tile);
     }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+desc_iloop_stack(const float* __restrict__ stack, int L, int H, int W,
+                 const int* __restrict__ lpos, const float* __restrict__ xs,
+                 const float* __restrict__ ys,
+                 const float* __restrict__ sigmas,
+                 const float* __restrict__ angs, int win, int win_y,
+                 int capacity, float* __restrict__ out) {
+    constexpr int kChunks = 1024 / 32;     // ballots of 32 grid samples
+    constexpr int kPer = kChunks / kWarps;
+    extern __shared__ float box[];
+    __shared__ float4 s_pts[1024];
+    __shared__ unsigned s_mask[kChunks];
+    __shared__ float s_bins[kWarps * kBins * 32];
+    const int slot = blockIdx.x;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const float x = xs[slot];
+    const float y = ys[slot];
+    const float a = angs[slot];
+    const float sbp = fabsf(3.0f * sigmas[slot]);
+    const bool ok = sbp > 0.0f;
+    const float c = cosf(a);
+    const float s = sinf(a);
+    const float bsz = fabsf(c) + fabsf(s);
+    const RowWindow r = row_window(stack, L, H, W, lpos[slot], x, y, sbp,
+                                   bsz, win, win_y);
+    const bool staged = r.bw * (r.by1 - r.by0 + 1) <= capacity;
+    if (staged && ok) stage_box(box, r);
+
+    // the samples that carry weight: chunk q of 32 holds k = 32 q + lane
+    bool inside[kPer];
+    float4 pt[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+        float dxg, dyg, nx, ny;
+        iloop_point(32 * (warp + kWarps * j) + lane, bsz, c, s, dxg, dyg,
+                    nx, ny);
+        pt[j] = make_float4(dxg * sbp, dyg * sbp, nx, ny);
+        inside[j] = fabsf(nx) < 1.0f && fabsf(ny) < 1.0f && ok;
+        const unsigned m = __ballot_sync(~0u, inside[j]);
+        if (lane == 0) s_mask[warp + kWarps * j] = m;
+    }
+    __syncthreads();
+    // exclusive prefix of the chunks' counts, then each sample's place
+    const int mine = __popc(s_mask[lane]);
+    int incl = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(~0u, incl, d);
+        if (lane >= d) incl = incl + t;
+    }
+    const int count = __shfl_sync(~0u, incl, 31);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+        const int q = warp + kWarps * j;
+        const int base = __shfl_sync(~0u, incl - mine, q);
+        if (inside[j])
+            s_pts[base + __popc(s_mask[q] & ((1u << lane) - 1u))] = pt[j];
+    }
+    __syncthreads();
+    float* dst = out + static_cast<size_t>(slot) * 128;
+    float* bins = s_bins + warp * kBins * 32 + lane;
+    if (!staged)
+        iloop_tiles<false, true>(r, box, s_pts, count, bins, x, y, sbp, c, s,
+                                 dst);
+    else if (r.interior)
+        iloop_tiles<true, false>(r, box, s_pts, count, bins, x, y, sbp, c, s,
+                                 dst);
+    else
+        iloop_tiles<true, true>(r, box, s_pts, count, bins, x, y, sbp, c, s,
+                                dst);
 }
 
 }  // namespace
@@ -381,33 +605,45 @@ PSK_API int psk_desc_grid(const float* wins, int win_y, const float* x,
     return psk::status();
 }
 
-// Grid (K12) and ILoop (K13): the arguments of psk_desc_grid without the
-// two descriptor tables.
-PSK_API int psk_desc_grid_rounded(const float* wins, int win_y,
-                                  const float* x, const float* y,
-                                  const float* x0, const float* y0,
-                                  const float* sigma, const float* angle,
-                                  int n, int W, int H, float* out,
-                                  void* stream) {
-    const int smem = win_y * kWinX * static_cast<int>(sizeof(float));
+// Grid (K12) and ILoop (K13) from the stack.  stack: (L, H, W) f32;
+// lpos: (n,) i32 (clamped to 0..L-1 here); x, y, sigma, angle: (n,) f32;
+// win: the descriptor window (K8's exact origins), win_y its rows;
+// capacity: floats of dynamic shared memory for a row's footprint (0:
+// every row reads the stack through L2); out: (n, 128).
+template <typename Kernel>
+static int launch_stack_rows(Kernel kernel, const float* stack, int L,
+                             int H, int W, const int* lpos, const float* x,
+                             const float* y, const float* sigma,
+                             const float* angle, int n, int win, int win_y,
+                             int capacity, float* out, void* stream) {
+    const int smem = capacity * static_cast<int>(sizeof(float));
     cudaError_t err = cudaFuncSetAttribute(
-        desc_grid_rounded, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    desc_grid_rounded<<<n, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        wins, win_y, x, y, x0, y0, sigma, angle, W, H, out);
+    kernel<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        stack, L, H, W, lpos, x, y, sigma, angle, win, win_y, capacity, out);
     return psk::status();
 }
 
-PSK_API int psk_desc_iloop(const float* wins, int win_y, const float* x,
-                           const float* y, const float* x0, const float* y0,
-                           const float* sigma, const float* angle, int n,
-                           int W, int H, float* out, void* stream) {
-    const int smem = win_y * kWinX * static_cast<int>(sizeof(float));
-    cudaError_t err = cudaFuncSetAttribute(
-        desc_iloop, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    desc_iloop<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        wins, win_y, x, y, x0, y0, sigma, angle, W, H, out);
-    return psk::status();
+PSK_API int psk_desc_grid_rounded_stack(const float* stack, int L, int H,
+                                        int W, const int* lpos,
+                                        const float* x, const float* y,
+                                        const float* sigma,
+                                        const float* angle, int n, int win,
+                                        int win_y, int capacity, float* out,
+                                        void* stream) {
+    return launch_stack_rows(desc_grid_rounded_stack, stack, L, H, W, lpos,
+                             x, y, sigma, angle, n, win, win_y, capacity,
+                             out, stream);
+}
+
+PSK_API int psk_desc_iloop_stack(const float* stack, int L, int H, int W,
+                                 const int* lpos, const float* x,
+                                 const float* y, const float* sigma,
+                                 const float* angle, int n, int win,
+                                 int win_y, int capacity, float* out,
+                                 void* stream) {
+    return launch_stack_rows(desc_iloop_stack, stack, L, H, W, lpos, x, y,
+                             sigma, angle, n, win, win_y, capacity, out,
+                             stream);
 }

@@ -184,9 +184,10 @@ def dispatch_descriptors(plan: ExtractorPlan, consts: ConstInfo | None,
     """Descriptor-mode dispatch (popsift_tpu/extract.py:185-237).  Loop
     descriptors read the gradient field (K6), or the stack (K11) with
     ``stack_kernels``.  The sampling modes read the blurred stack through
-    per-row windows (K8): NoTile and IGrid, which compute the same numbers,
-    with K9 and ``consts``' two descriptor tables on the stack's device;
-    Grid with K12; ILoop with K13."""
+    per-row windows: NoTile and IGrid, which compute the same numbers,
+    with K8 and K9 and ``consts``' two descriptor tables on the stack's
+    device; Grid with K12 and ILoop with K13, which read the windows
+    straight from the stack."""
     if plan.desc_mode == DescMode.LOOP:
         return ops_desc.loop_descriptors(
             field, xpos, ypos, lpos, sigma, ang, plan.desc_win,

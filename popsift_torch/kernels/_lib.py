@@ -32,8 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("sep_blur", "grad_field", "detect", "refine", "ori_hist",
            "desc_loop", "octave_chain", "gather_windows", "desc_grid",
-           "ori_hist_stack", "desc_loop_stack", "desc_grid_rounded",
-           "desc_iloop", "blur_chain")
+           "ori_hist_stack", "desc_loop_stack", "desc_grid_rounded_stack",
+           "desc_iloop_stack", "blur_chain")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -55,9 +55,10 @@ _SIGNATURES = {
                            _P],
     "psk_desc_loop_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P,
                             _P],
-    "psk_desc_grid_rounded": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _P, _P],
-    "psk_desc_iloop": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "psk_desc_grid_rounded_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _P, _P],
+    "psk_desc_iloop_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,6 @@
-"""K9: NoTile/IGrid, K12: Grid and K13: ILoop descriptors from per-slot
-windows (csrc/desc_grid.cu).
+"""K9: NoTile/IGrid descriptors from per-slot windows, and K12: Grid and
+K13: ILoop descriptors from the stack through the same windows
+(csrc/desc_grid.cu).
 
 The JAX package computes these steps as XLA (ops/descriptors.py:
 grid_descriptors_windowed, grid_rounded_descriptors_windowed and
@@ -18,7 +19,12 @@ are the arithmetic of the JAX gather forms, batched over the slots.
   rotated tile's bounding box, bilinear rotated-derivative gradients.
 
 The two bodies take a sampler, so the whole-plane forms in
-ops/descriptors.py run the same arithmetic on the octave's plane.
+ops/descriptors.py run the same arithmetic on the octave's plane.  K12 and
+K13 (:func:`desc_grid_rounded_stack`, :func:`desc_iloop_stack`) read K8's
+window of each row straight from the (L, H, W) stack, only over the row's
+footprint (:func:`footprint_box`); their plain versions are K8's plain
+gather followed by the window forms (:func:`desc_grid_rounded_plain`,
+:func:`desc_iloop_plain`).
 """
 
 from __future__ import annotations
@@ -28,12 +34,17 @@ import torch
 
 from ..constants import DESC_MAGNIFY, M_4RPI, M_PI2
 from . import _lib
+from .windows import gather_windows_plain, rolled_window_dims, window_origins
 
 _CHUNK = 256
 # rows per plain-version chunk of the Grid (4096 samples a row) and ILoop
 # (16384 samples a row) forms
 CHUNK_GRID = 64
 CHUNK_ILOOP = 16
+# floats of shared memory a K12/K13 block stages a row's footprint in
+# (32 KB: boxes up to 90 x 90, sbp ~ 11 at 45 degrees); a row whose box
+# holds more reads its taps from the stack through L2
+STAGE_FLOATS = 8192
 
 
 def _grid_steps() -> np.ndarray:
@@ -166,23 +177,20 @@ def tile_bins(th: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
     return D.reshape(th.shape[0], 128)
 
 
-def grid_rounded_body(tapi, x, y, sigma, ang, w: int, h: int):
-    """(n, 128) Grid descriptors (popsift_tpu ops/descriptors.py:
-    _grid_rounded_body; s_desc_grid.cu:18-121) given ``tapi(yy, xx)``, the
-    values at integer coordinates already clipped to the (h, w) image.
-    Each tile samples its own rotated 16x16 grid, every sample rounded to
-    the nearest pixel (half to even, as jnp.round), the tile and Gaussian
-    weights recomputed at the rounded pixel and the sample skipped where
-    the triangle weight goes negative (:86); the gradient is the
-    axis-aligned central difference there, de-rotated by the angle."""
+def grid_rounded_points(x, y, sigma, ang):
+    """The Grid samples of each row (s_desc_grid.cu:62-86): per tile a
+    rotated 16x16 grid, each sample rounded to the nearest pixel (half to
+    even, as jnp.round), and the rotated-local coordinates recomputed
+    there.  Returns (px, py, nx, ny, good), each (n, 16, 256) with sample
+    j = 16 yd + xd of tile t = 4 iy + ix; ``good``: the triangle weights
+    1 - |nx| and 1 - |ny| are not negative and the scale is positive."""
     sbp = torch.abs(DESC_MAGNIFY * sigma)
     ok = (sbp > 0.0)[:, None, None]
     safe = torch.where(sbp > 0.0, sbp, 1.0)[:, None, None]
     c = torch.cos(ang)[:, None, None]
     s = torch.sin(ang)[:, None, None]
     sb = sbp[:, None, None]
-    # local 16x16 grid in tile units, (k + 0.5) / 8 - 1 (s_desc_grid.cu:69);
-    # sample j = 16 yd + xd
+    # local 16x16 grid in tile units, (k + 0.5) / 8 - 1 (s_desc_grid.cu:69)
     k = (torch.arange(16, dtype=torch.float32, device=x.device) + 0.5) \
         / 8.0 - 1.0
     u = k.repeat(16)
@@ -198,6 +206,21 @@ def grid_rounded_body(tapi, x, y, sigma, ang, w: int, h: int):
     ry = (py - pty) / safe
     nx = c * rx + s * ry
     ny = c * ry - s * rx
+    good = (1.0 - torch.abs(nx) >= 0.0) & (1.0 - torch.abs(ny) >= 0.0) & ok
+    return px, py, nx, ny, good
+
+
+def grid_rounded_body(tapi, x, y, sigma, ang, w: int, h: int):
+    """(n, 128) Grid descriptors (popsift_tpu ops/descriptors.py:
+    _grid_rounded_body; s_desc_grid.cu:18-121) given ``tapi(yy, xx)``, the
+    values at integer coordinates already clipped to the (h, w) image.
+    Each tile samples its own rotated 16x16 grid, every sample rounded to
+    the nearest pixel (:func:`grid_rounded_points`), the tile and Gaussian
+    weights recomputed at the rounded pixel and the sample skipped where
+    the triangle weight goes negative (:86); the gradient is the
+    axis-aligned central difference there, de-rotated by the angle."""
+    px, py, nx, ny, good = grid_rounded_points(x, y, sigma, ang)
+    ox, oy = _tile_centres(x)
     ix0 = px.to(torch.int64).clamp(0, w - 1)
     iy0 = py.to(torch.int64).clamp(0, h - 1)
     gdx = tapi(iy0, (ix0 + 1).clamp(max=w - 1)) \
@@ -211,8 +234,51 @@ def grid_rounded_body(tapi, x, y, sigma, ang, w: int, h: int):
     ww = torch.exp(-(dnx * dnx + dny * dny) / 8.0)
     wx = 1.0 - torch.abs(nx)
     wy = 1.0 - torch.abs(ny)
-    good = (wx >= 0.0) & (wy >= 0.0) & ok
     return tile_bins(th, torch.where(good, ww * wx * wy * mod, 0.0))
+
+
+def _iloop_grid(ang):
+    """The fixed 32x32 ILoop grid of each row (s_desc_iloop.cu:60-75):
+    offsets (dxg, dyg) in SBP units, -bsz + k bsz / 16, and their rotated
+    coordinates (nx, ny), each (n, 1, 1024) with sample j = 32 row +
+    column, and cos / sin of the angle (n, 1, 1)."""
+    cos_t = torch.cos(ang)
+    sin_t = torch.sin(ang)
+    bsz = (torch.abs(cos_t) + torch.abs(sin_t))[:, None]
+    kk = torch.arange(32, dtype=torch.float32, device=ang.device)
+    d = -bsz + kk * bsz / 16.0
+    dxg = d.repeat(1, 32)[:, None, :]
+    dyg = d.repeat_interleave(32, dim=1)[:, None, :]
+    c = cos_t[:, None, None]
+    s = sin_t[:, None, None]
+    nx = c * dxg + s * dyg
+    ny = c * dyg - s * dxg
+    return dxg, dyg, nx, ny, c, s
+
+
+def iloop_sample_list(sigma, ang):
+    """K13's list of each row's samples that carry weight, built as the
+    kernel builds it: one ballot per 32 samples (grid row q holds samples
+    32 q .. 32 q + 31), an exclusive prefix of the 32 counts, and each
+    sample's place = its ballot's prefix + the set bits below its lane
+    (the kernel keeps the sample's offsets and rotated coordinates there).
+    The samples that carry weight are those with |nx| < 1 and |ny| < 1 at
+    a positive scale (the ``nn_ok & ok`` of :func:`iloop_body`).  Returns
+    (list (n, 1024) int32, -1 past the count; count (n,))."""
+    _, _, nx, ny, _, _ = _iloop_grid(ang)
+    ok = (torch.abs(DESC_MAGNIFY * sigma) > 0.0)[:, None]
+    inside = ((torch.abs(nx) < 1.0) & (torch.abs(ny) < 1.0))[:, 0] & ok
+    inside = inside.reshape(-1, 32, 32).to(torch.int32)
+    per_ballot = inside.sum(dim=2)
+    base = torch.cumsum(per_ballot, dim=1) - per_ballot
+    below = torch.cumsum(inside, dim=2) - inside
+    place = torch.where(inside > 0, base[:, :, None] + below, 1024)
+    n = inside.shape[0]
+    out = torch.full((n, 1025), -1, dtype=torch.int32, device=sigma.device)
+    k = torch.arange(1024, dtype=torch.int32, device=sigma.device)
+    out.scatter_(1, place.reshape(n, 1024).to(torch.int64),
+                 k.expand(n, 1024).contiguous())
+    return out[:, :1024], per_ballot.sum(dim=1)
 
 
 def iloop_body(bil, x, y, sigma, ang):
@@ -223,19 +289,8 @@ def iloop_body(bil, x, y, sigma, ang):
     rotated-derivative gradients, no angle subtraction."""
     sbp = torch.abs(DESC_MAGNIFY * sigma)
     ok = (sbp > 0.0)[:, None, None]
-    cos_t = torch.cos(ang)
-    sin_t = torch.sin(ang)
-    bsz = (torch.abs(cos_t) + torch.abs(sin_t))[:, None]
-    kk = torch.arange(32, dtype=torch.float32, device=x.device)
-    d = -bsz + kk * bsz / 16.0
-    # sample j = 32 row + column
-    dxg = d.repeat(1, 32)[:, None, :]
-    dyg = d.repeat_interleave(32, dim=1)[:, None, :]
-    c = cos_t[:, None, None]
-    s = sin_t[:, None, None]
+    dxg, dyg, nx, ny, c, s = _iloop_grid(ang)
     sb = sbp[:, None, None]
-    nx = c * dxg + s * dyg
-    ny = c * dyg - s * dxg
     nn_ok = (torch.abs(nx) < 1.0) & (torch.abs(ny) < 1.0)
     ox, oy = _tile_centres(x)
     ptx = (c * sb) * ox - (s * sb) * oy
@@ -296,6 +351,62 @@ def desc_iloop_plain(wins, x, y, x0f, y0f, sigma, ang, w: int,
     return out
 
 
+def footprint_half(sigma, ang) -> torch.Tensor:
+    """(n,) int64 half side of each row's footprint box, ceil(2.5 bsz sbp
+    + 2) with bsz = |cos| + |sin| and sbp = 3 sigma (at most 256).  The
+    Grid samples lie within 2.4375 bsz sbp of the keypoint, rounded to a
+    pixel, with taps one pixel further; the ILoop samples within 2.5 bsz
+    sbp, with rotated-derivative taps one pixel further and the bilinear
+    corner's second pixel."""
+    sbp = torch.abs(DESC_MAGNIFY * sigma)
+    bsz = torch.abs(torch.cos(ang)) + torch.abs(torch.sin(ang))
+    return torch.ceil(2.5 * bsz * sbp + 2.0).clamp(max=256.0) \
+        .to(torch.int64)
+
+
+def footprint_box(x, y, sigma, ang, win: int, half=None):
+    """Each row's footprint in window-local pixels of K8's exact-origin
+    window (:func:`window_origins`): the inclusive box (bx0, bx1, by0,
+    by1), (n,) int64 each, of +-``half`` (:func:`footprint_half` by
+    default) around (floor(x - x0), floor(y - ya)), clamped to the
+    (win_y, 128) window.  Every tap of the Grid and ILoop forms lies
+    inside; K12 and K13 stage this box widened by one pixel on each
+    side."""
+    win_y, win_x = rolled_window_dims(win)
+    x0, ya = window_origins(x, y, win)
+    if half is None:
+        half = footprint_half(sigma, ang)
+    fx = torch.floor(x - x0.to(torch.float32)).to(torch.int64)
+    fy = torch.floor(y - ya.to(torch.float32)).to(torch.int64)
+    return ((fx - half).clamp(min=0), (fx + half).clamp(max=win_x - 1),
+            (fy - half).clamp(min=0), (fy + half).clamp(max=win_y - 1))
+
+
+def stack_windows_plain(stack: torch.Tensor, x, y, lpos, win: int):
+    """K8's (win_y, 128) window of each row (the plain gather), with its
+    origins (x0, ya) as float32."""
+    L = stack.shape[0]
+    x0, ya = window_origins(x, y, win)
+    wy, wx = rolled_window_dims(win)
+    lp = lpos.to(torch.int64).clamp(0, L - 1)
+    wins = gather_windows_plain(stack, lp, ya, x0, wy, wx)
+    return wins, x0.to(torch.float32), ya.to(torch.float32)
+
+
+def desc_grid_rounded_stack_plain(stack, x, y, lpos, sigma, ang,
+                                  win: int) -> torch.Tensor:
+    _, h, w = stack.shape
+    wins, x0f, yaf = stack_windows_plain(stack, x, y, lpos, win)
+    return desc_grid_rounded_plain(wins, x, y, x0f, yaf, sigma, ang, w, h)
+
+
+def desc_iloop_stack_plain(stack, x, y, lpos, sigma, ang,
+                           win: int) -> torch.Tensor:
+    _, h, w = stack.shape
+    wins, x0f, yaf = stack_windows_plain(stack, x, y, lpos, win)
+    return desc_iloop_plain(wins, x, y, x0f, yaf, sigma, ang, w, h)
+
+
 def _check_windows(name: str, wins: torch.Tensor) -> None:
     if wins.dim() != 3 or wins.shape[2] != 128 or wins.shape[1] % 4 \
             or wins.dtype != torch.float32:
@@ -332,23 +443,61 @@ def desc_grid(wins: torch.Tensor, x, y, x0f, y0f, sigma, ang, w: int,
                       (desc_gauss, desc_tile))
 
 
-def desc_grid_rounded(wins: torch.Tensor, x, y, x0f, y0f, sigma, ang,
-                      w: int, h: int) -> torch.Tensor:
-    """(n, 128) unnormalised Grid descriptors (K12); arguments as
-    :func:`desc_grid` without the two tables."""
-    _check_windows("desc_grid_rounded", wins)
-    if wins.device.type == "cpu":
-        return desc_grid_rounded_plain(wins, x, y, x0f, y0f, sigma, ang, w,
-                                       h)
-    return _rows_call("desc_grid_rounded", wins, w, h,
-                      (x, y, x0f, y0f, sigma, ang))
+def _check_stack(name: str, stack: torch.Tensor, win: int,
+                 stage: int) -> None:
+    if stack.dim() != 3 or stack.dtype != torch.float32:
+        raise ValueError(f"{name} takes an (L, H, W) float32 stack")
+    rolled_window_dims(win)
+    if stage < 0:
+        raise ValueError(f"{name}: stage must be >= 0 floats")
 
 
-def desc_iloop(wins: torch.Tensor, x, y, x0f, y0f, sigma, ang, w: int,
-               h: int) -> torch.Tensor:
+def _on(dev, v, dtype):
+    if v.device != dev or v.dtype != dtype or not v.is_contiguous():
+        v = v.to(device=dev, dtype=dtype).contiguous()
+    return v
+
+
+def _stack_rows_call(name: str, stack, x, y, lpos, sigma, ang, win: int,
+                     stage: int) -> torch.Tensor:
+    dev = _lib.check_cuda(name, stack)
+    lpos = _on(dev, lpos, torch.int32)
+    x, y, sigma, ang = (_on(dev, v, torch.float32)
+                        for v in (x, y, sigma, ang))
+    L, H, W = stack.shape
+    n = int(x.shape[0])
+    out = torch.empty((n, 128), dtype=torch.float32, device=dev)
+    if n:
+        _lib.call(name, dev, stack.data_ptr(), L, H, W, lpos.data_ptr(),
+                  x.data_ptr(), y.data_ptr(), sigma.data_ptr(),
+                  ang.data_ptr(), n, win, rolled_window_dims(win)[0], stage,
+                  out.data_ptr())
+    return out
+
+
+def desc_grid_rounded_stack(stack: torch.Tensor, x, y, lpos, sigma, ang,
+                            win: int, stage: int = STAGE_FLOATS
+                            ) -> torch.Tensor:
+    """(n, 128) unnormalised Grid descriptors (K12) of keypoints (x, y) at
+    level ``lpos`` of the (L, H, W) ``stack``, scale ``sigma`` and angle
+    ``ang``: the numbers of K8's exact-origin windows (descriptor window
+    ``win``) through :func:`desc_grid_rounded_plain`.  ``stage``: floats
+    of shared memory for a row's footprint on the card (0: every row reads
+    the stack through L2)."""
+    _check_stack("desc_grid_rounded_stack", stack, win, stage)
+    if stack.device.type == "cpu":
+        return desc_grid_rounded_stack_plain(stack, x, y, lpos, sigma, ang,
+                                             win)
+    return _stack_rows_call("desc_grid_rounded_stack", stack, x, y, lpos,
+                            sigma, ang, win, stage)
+
+
+def desc_iloop_stack(stack: torch.Tensor, x, y, lpos, sigma, ang, win: int,
+                     stage: int = STAGE_FLOATS) -> torch.Tensor:
     """(n, 128) unnormalised ILoop descriptors (K13); arguments as
-    :func:`desc_grid` without the two tables."""
-    _check_windows("desc_iloop", wins)
-    if wins.device.type == "cpu":
-        return desc_iloop_plain(wins, x, y, x0f, y0f, sigma, ang, w, h)
-    return _rows_call("desc_iloop", wins, w, h, (x, y, x0f, y0f, sigma, ang))
+    :func:`desc_grid_rounded_stack`."""
+    _check_stack("desc_iloop_stack", stack, win, stage)
+    if stack.device.type == "cpu":
+        return desc_iloop_stack_plain(stack, x, y, lpos, sigma, ang, win)
+    return _stack_rows_call("desc_iloop_stack", stack, x, y, lpos, sigma,
+                            ang, win, stage)

@@ -74,6 +74,16 @@ def gather_windows_exact(plane: torch.Tensor, lpos, y0, x0, win: int):
     return gather_windows(plane, lpos, ya, x0, wy, wx), ya
 
 
+def window_origins(x, y, win: int):
+    """The exact-origin window of a descriptor row at (x, y): column
+    x0 = round(x) - win/2 and first row ya = 8 floor((round(y) - win/2) /
+    8), both int32, as :func:`gather_windows_exact` places it for y0 =
+    round(y) - win/2."""
+    x0 = torch.round(x).to(torch.int32) - win // 2
+    y0 = torch.round(y).to(torch.int32) - win // 2
+    return x0, _floor_to(y0, 8)
+
+
 def gather_windows_aligned(plane: torch.Tensor, lpos, y0, x0, win: int):
     """(win_y, 128 k) windows at (8, 128)-aligned origins.  Returns
     (windows, ya, xa)."""

@@ -3,18 +3,19 @@
 
 Loop descriptors read the gradient field (K6), or the blurred stack (K11)
 on the stack-kernel path.  The sampling modes read the blurred stack
-through one window per row (K8) and compute each descriptor from it:
-NoTile and IGrid, which compute the same numbers, on a rotated 40x40 grid
-(:func:`grid_descriptors_windowed`, K9); Grid on rotated 16x16 grids per
-tile rounded to pixels (:func:`grid_rounded_descriptors_windowed`, K12);
-ILoop on axis-aligned 32x32 grids per tile
-(:func:`iloop_descriptors_windowed`, K13).  The whole-plane forms
-(:func:`grid_descriptors`, :func:`grid_rounded_descriptors`,
-:func:`iloop_descriptors`) sample the octave's plane instead and are kept
-for the tests that hold the windowed forms to them.  The JAX package's
-matmul forms (``..._mm``) recast the sampling for the TPU's matrix unit;
-K9, K12 and K13 compute the same functions directly and the matmul forms
-are not ported.
+through one window per row (K8's exact-origin window) and compute each
+descriptor from it: NoTile and IGrid, which compute the same numbers, on a
+rotated 40x40 grid (:func:`grid_descriptors_windowed`: K8 writes the
+windows, K9 reads them); Grid on rotated 16x16 grids per tile rounded to
+pixels (:func:`grid_rounded_descriptors_windowed`, K12); ILoop on
+axis-aligned 32x32 grids per tile (:func:`iloop_descriptors_windowed`,
+K13).  K12 and K13 read the window's pixels straight from the stack.  The
+whole-plane forms (:func:`grid_descriptors`,
+:func:`grid_rounded_descriptors`, :func:`iloop_descriptors`) sample the
+octave's plane instead and are kept for the tests that hold the windowed
+forms to them.  The JAX package's matmul forms (``..._mm``) recast the
+sampling for the TPU's matrix unit; K9, K12 and K13 compute the same
+functions directly and the matmul forms are not ported.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from ..constants import DESC_MAGNIFY
 from ..kernels.binwin import desc_loop, desc_loop_stack
 from ..kernels.desc_grid import (CHUNK_GRID, CHUNK_ILOOP,  # noqa: F401
                                  _grid_steps, _tile_weight_matrix, desc_grid,
-                                 desc_grid_rounded, desc_iloop,
+                                 desc_grid_rounded_stack, desc_iloop_stack,
                                  grid_histograms, grid_points,
                                  grid_rounded_body, iloop_body)
 from ..kernels.windows import gather_windows_exact
@@ -130,25 +131,22 @@ def grid_descriptors_windowed(stack: torch.Tensor, xpos, ypos, lpos, sigma,
 def grid_rounded_descriptors_windowed(stack: torch.Tensor, xpos, ypos, lpos,
                                       sigma, ang, win: int,
                                       valid=None) -> torch.Tensor:
-    """(n, 128) Grid descriptors through K8's windows and K12.  Integer
-    taps are clipped to the image first and then to the window (popsift_tpu
-    ops/descriptors.py:908-958); a clipped tap always lands inside the
-    window, since clipping only moves a sample toward the keypoint."""
-    _, h, w = stack.shape
-    wins, x0, ya = _row_windows(stack, xpos, ypos, lpos, win)
-    return _zero_invalid(desc_grid_rounded(wins, xpos, ypos, x0, ya, sigma,
-                                           ang, w, h), valid)
+    """(n, 128) Grid descriptors through K8's windows, which K12 reads
+    straight from the stack.  Integer taps are clipped to the image first
+    and then to the window (popsift_tpu ops/descriptors.py:908-958); a
+    clipped tap always lands inside the window, since clipping only moves
+    a sample toward the keypoint."""
+    return _zero_invalid(desc_grid_rounded_stack(stack, xpos, ypos, lpos,
+                                                 sigma, ang, win), valid)
 
 
 def iloop_descriptors_windowed(stack: torch.Tensor, xpos, ypos, lpos, sigma,
                                ang, win: int, valid=None) -> torch.Tensor:
-    """(n, 128) ILoop descriptors through K8's windows and K13, with the
-    image bounds in window coordinates as for NoTile (popsift_tpu
-    ops/descriptors.py:1039-1088)."""
-    _, h, w = stack.shape
-    wins, x0, ya = _row_windows(stack, xpos, ypos, lpos, win)
-    return _zero_invalid(desc_iloop(wins, xpos, ypos, x0, ya, sigma, ang, w,
-                                    h), valid)
+    """(n, 128) ILoop descriptors through K8's windows, which K13 reads
+    straight from the stack, with the image bounds in window coordinates
+    as for NoTile (popsift_tpu ops/descriptors.py:1039-1088)."""
+    return _zero_invalid(desc_iloop_stack(stack, xpos, ypos, lpos, sigma,
+                                          ang, win), valid)
 
 
 def _chunked(body, n: int, chunk: int, device) -> torch.Tensor:

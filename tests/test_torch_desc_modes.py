@@ -163,28 +163,42 @@ def test_grid_matches_golden(form):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_kernel_wrappers_take_windows(setup, mode):
-    """K12's and K13's plain versions through their wrappers: rows are
-    independent, so a subset of slots gives the same rows (within 1e-6 x
-    the largest entry: the maths library's vector and scalar forms, chosen
-    by an element's place in the batch, may differ in the last bit);
-    zero-scale slots give zeros; windows that are not 128 wide are
-    refused."""
-    fn = {"grid": tkgrid.desc_grid_rounded, "iloop": tkgrid.desc_iloop}[mode]
+    """K12's and K13's plain versions through their wrappers, which take
+    the stack and read K8's exact-origin windows from it: the same numbers
+    as K8's gather (gather_windows_exact at round(x) - win/2, round(y) -
+    win/2) followed by the window forms; rows are independent, so a subset
+    of rows gives the same rows (within 1e-6 x the largest entry: the
+    maths library's vector and scalar forms, chosen by an element's place
+    in the batch, may differ in the last bit); zero-scale rows give zeros;
+    a stack that is not (L, H, W) float32, a window wider than K8's 120
+    and a negative staging capacity are refused."""
+    fn = {"grid": tkgrid.desc_grid_rounded_stack,
+          "iloop": tkgrid.desc_iloop_stack}[mode]
+    window_form = {"grid": tkgrid.desc_grid_rounded_plain,
+                   "iloop": tkgrid.desc_iloop_plain}[mode]
     x, y, lv, sig, ang, _ = setup["targs"]
     stack, win = setup["stack"], setup["win"]
     _, h, w = stack.shape
     x0 = torch.round(x).to(torch.int32) - win // 2
     y0 = torch.round(y).to(torch.int32) - win // 2
     wins, ya = gather_windows_exact(stack, lv, y0, x0, win)
-    rows = (x, y, x0.float(), ya.float(), sig, ang)
-    full = fn(wins, *rows, w, h)
-    part = fn(wins[5:9].contiguous(), *(r[5:9] for r in rows), w, h)
+    rows = (x, y, lv, sig, ang)
+    full = fn(stack, *rows, win)
+    assert torch.equal(full, window_form(wins, x, y, x0.float(), ya.float(),
+                                         sig, ang, w, h))
+    part = fn(stack, *(r[5:9] for r in rows), win)
     _close(part.numpy(), full[5:9].numpy(), 1e-6)
     zero = [r[5:9] for r in rows]
-    zero[4] = zero[4] * 0
-    assert not fn(wins[5:9].contiguous(), *zero, w, h).any()
+    zero[3] = zero[3] * 0
+    assert not fn(stack, *zero, win).any()
     with pytest.raises(ValueError):
-        fn(wins[:, :, :64], *rows, w, h)
+        fn(stack[0], *rows, win)
+    with pytest.raises(ValueError):
+        fn(stack.double(), *rows, win)
+    with pytest.raises(ValueError):
+        fn(stack, *rows, 128)
+    with pytest.raises(ValueError):
+        fn(stack, *rows, win, stage=-1)
 
 
 @pytest.fixture(scope="module")

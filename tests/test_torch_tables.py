@@ -253,11 +253,12 @@ def test_wrappers_take_the_kernel_path_off_the_cpu(monkeypatch):
         lambda: binwin.desc_loop_stack(meta(6, 16, 32), meta(3), meta(3),
                                        meta(3, dtype=torch.int32), meta(3),
                                        meta(3), 56),
-        lambda: desc_grid.desc_grid_rounded(meta(3, 8, 128),
-                                            *(meta(3) for _ in range(6)),
-                                            32, 16),
-        lambda: desc_grid.desc_iloop(meta(3, 8, 128),
-                                     *(meta(3) for _ in range(6)), 32, 16),
+        lambda: desc_grid.desc_grid_rounded_stack(
+            meta(6, 16, 32), meta(3), meta(3), meta(3, dtype=torch.int32),
+            meta(3), meta(3), 112),
+        lambda: desc_grid.desc_iloop_stack(
+            meta(6, 16, 32), meta(3), meta(3), meta(3, dtype=torch.int32),
+            meta(3), meta(3), 112),
         lambda: binwin.ori_peaks(meta(12, 16, 32), meta(3), meta(3),
                                  meta(3, dtype=torch.int32), meta(3),
                                  hist=meta(3, 36)),
