@@ -1,15 +1,16 @@
-// K9: NoTile/IGrid descriptors from per-slot windows.  One block per
-// descriptor row: the rotated 40x40 sample grid, four bilinear samples for
-// the rotated gradient, hypotf / atan2f, the desc_gauss weight, the two
-// orientation bins, and the contraction with the triangle tile weights
-// into 4 x 4 x 8 bins.
+// K9: NoTile/IGrid descriptors, K12: Grid and K13: ILoop descriptors, each
+// of a row read straight from the octave's blurred stack.  One block per
+// descriptor row.
 //
 // K9 replaces the XLA contraction popsift_tpu/ops/descriptors.py:
 // grid_descriptors_windowed_mm (and its gather form
 // grid_descriptors_windowed, whose arithmetic it follows): the JAX package
 // runs this step as XLA matmuls for the TPU's matrix unit, not as Pallas.
-// The reference runs it as a CUDA kernel (s_desc_notile.cu:31-129).
-// Window-local coordinates, clamps and evaluation order are those of
+// The reference runs it as a CUDA kernel (s_desc_notile.cu:31-129): the
+// rotated 40x40 sample grid, four bilinear samples for the rotated
+// gradient, hypotf / atan2f, the desc_gauss weight, the two orientation
+// bins, and the contraction with the triangle tile weights into 4 x 4 x 8
+// bins.  Window-local coordinates, clamps and evaluation order are those of
 // _bilinear_win and grid_descriptors_windowed.
 //
 // K12 replaces grid_rounded_descriptors_windowed_mm (arithmetic of
@@ -23,7 +24,7 @@
 // (_iloop_body through iloop_descriptors_windowed; s_desc_iloop.cu:
 // 18-130): per tile an axis-aligned 32x32 grid over the rotated tile's
 // bounding box, four bilinear taps per sample (K9's sampler), no angle
-// subtraction.  Both read the octave's (L, H, W) stack through K8's
+// subtraction.  All three read the octave's (L, H, W) stack through K8's
 // exact-origin window of the row (column x0 = round(x) - win/2, rows from
 // ya = 8 floor((round(y) - win/2) / 8), win_y x 128, clamp addressing)
 // without writing it: window pixel (r, c) is
@@ -31,44 +32,52 @@
 // coordinate stays in window-local terms, so the values are those of K8
 // followed by the window forms.
 //
-// Bound on the H100: device-memory bytes for K9 (each block reads its
-// 61,440-byte window once; ~170k operations a row); operations for K12
-// and K13 (~0.25M a Grid row and ~1.5M an ILoop row against the few KB of
-// stack pixels a row's samples reach, most of them shared with
-// neighbouring rows in L2).  Design of K9: the window is copied to
-// dynamic shared memory with 16-byte loads; each thread computes whole
-// samples and stores (bin, low weight, high weight); the contraction then
-// runs in a fixed order, first over the 16 columns of each x tile
-// (yxb,xt->ytb) and then over the 16 rows of each y tile (ytb,ys->stb),
-// one output per thread.
+// Bound on the H100: operations (~0.16M a NoTile row, ~0.25M a Grid row
+// and ~1.5M an ILoop row against the few KB of stack pixels a row's
+// samples reach, most of them shared with neighbouring rows in L2); in
+// practice instruction issue.
 //
-// Design of K12 and K13: one block of 8 warps per row.  The block stages
-// only the row's footprint, the box of +-(ceil(2.5 bsz sbp + 2) + 1) px
-// around the keypoint in window-local terms (bsz = |cos| + |sin|), clamped
-// to the window: the samples reach 2.5 bsz sbp and the taps one more
-// pixel, and the last pixel is slack for cosf / sinf against torch's
-// (kernels/desc_grid.py:footprint_box is the same formula without it,
-// and the CPU tests show that every tap lies inside).  The box goes to
-// dynamic shared memory, four loads in flight per lane; a row whose box
-// holds more pixels than the launch's capacity reads its taps from the
-// stack through L2 in the same kernel (a block-uniform branch).  Tap
-// indices are clamped to the box, which equals the window-local clamps
-// whenever the box covers the taps and keeps every read inside it; on a
-// row whose box lies inside the image, K13's clamps of the sample
-// coordinates to the image change nothing and are left out.  K13 first
-// compacts the samples of its 32x32 grid that carry weight (|nx| < 1,
-// |ny| < 1: the set depends on the angle alone) into a shared table in
-// ascending order, each entry its offsets times sbp and (nx, ny) (a
-// ballot per 32 samples and a prefix of the counts); the others add
-// exactly +0.0 to sums of non-negative terms, so skipping them changes no
-// bit.  K12 keeps its 256 rotated grid offsets times sbp in a table too
-// (they are the same in every tile) and skips a point whose triangle
-// weight is negative before its taps.  Each warp owns whole tiles (2 of
-// the 16): its lanes walk the tile's samples (the table, or the 256
-// points) in a fixed order, each adding to its two bins in its own column
-// of shared memory, and the tile's bins are summed over the lanes by
-// fixed shuffle butterflies, so no block barrier is paid per tile.  No
-// atomics: every result is the same from run to run.
+// Common design: one block of 8 warps per row.  The block stages only the
+// row's footprint, the box of +-(ceil(2.5 bsz sbp + 2) + 1) px around the
+// keypoint in window-local terms (bsz = |cos| + |sin|), clamped to the
+// window: the ILoop samples reach 2.5 bsz sbp (Grid and NoTile 2.4375 bsz
+// sbp) and the taps one more pixel, and the last pixel is slack for
+// cosf / sinf against torch's (kernels/desc_grid.py:footprint_box is the
+// same formula without it, and the CPU tests show that every tap lies
+// inside).  The box goes to dynamic shared memory, four loads in flight
+// per lane; a row whose box holds more pixels than the launch's capacity
+// reads its taps from the stack through L2 in the same kernel (a
+// block-uniform branch).  Tap indices are clamped to the box, which equals
+// the window-local clamps whenever the box covers the taps and keeps every
+// read inside it; on a row whose box lies inside the image, the clamps of
+// the sample coordinates to the image change nothing and are left out
+// (K9, K13).  No atomics: every result is the same from run to run.
+//
+// Design of K9: warp w computes the samples of grid rows 5 w .. 5 w + 4
+// and keeps them, as (bin, low weight, high weight), in its own 1.8 KB of
+// shared memory; 20 of its lanes then walk the x tiles of those rows
+// (lane (row, tx): j = 0..15 in order, adding each sample's two non-zero
+// terms to its two bins; the zeros that the window form adds to the six
+// other bins are +0.0 on sums of non-negative terms).  One block barrier after the
+// staging and one before the y tiles (128 sums of 16 in the order
+// j = 0..15, one a thread: the order of the sums leaves nothing to split);
+// a row of zero scale writes zeros without staging.  The values and the
+// order of every sum are those of K8's window followed by the window
+// form's kernel, bit for bit.
+//
+// Design of K12 and K13: K13 first compacts the samples of its 32x32 grid
+// that carry weight (|nx| < 1, |ny| < 1: the set depends on the angle
+// alone) into a shared table in ascending order, each entry its offsets
+// times sbp and (nx, ny) (a ballot per 32 samples and a prefix of the
+// counts); the others add exactly +0.0 to sums of non-negative terms, so
+// skipping them changes no bit.  K12 keeps its 256 rotated grid offsets
+// times sbp in a table too (they are the same in every tile) and skips a
+// point whose triangle weight is negative before its taps.  Each warp
+// owns whole tiles (2 of the 16): its lanes walk the tile's samples (the
+// table, or the 256 points) in a fixed order, each adding to its two bins
+// in its own column of shared memory, and the tile's bins are summed over
+// the lanes by fixed shuffle butterflies, so no block barrier is paid per
+// tile.
 // The kernels are bound by instruction issue (about 300 instructions a
 // K13 sample in the sm_90a SASS at --fmad=false: four bilinear taps,
 // hypotf, atan2f, expf, two bins); registers are capped for three blocks
@@ -79,129 +88,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// K12/K13: three blocks of a row each on an SM (at most 85 registers)
+// three blocks of a row each on an SM (at most 85 registers)
 constexpr int kMinBlocks = 3;
 constexpr int kGrid = 40;
-constexpr int kSamples = kGrid * kGrid;
 constexpr int kWinX = 128;
 constexpr int kTiles = 16;
 constexpr int kBins = 8;
-
-// Copies row slot's (win_y, 128) window into shared memory, 16 bytes a load.
-__device__ __forceinline__ void load_window(float4* win4, const float* wins,
-                                            int win_y, int slot) {
-    const float4* src = reinterpret_cast<const float4*>(
-        wins + static_cast<size_t>(slot) * win_y * kWinX);
-    for (int i = threadIdx.x; i < win_y * kWinX / 4; i += kThreads)
-        win4[i] = src[i];
-}
-
-__device__ __forceinline__ float bilinear(const float* win, int win_y,
-                                          float px, float py, float xlo,
-                                          float xhi, float ylo, float yhi) {
-    px = fminf(fmaxf(px, xlo), xhi);
-    py = fminf(fmaxf(py, ylo), yhi);
-    const float x0f = floorf(px);
-    const float y0f = floorf(py);
-    const float fx = px - x0f;
-    const float fy = py - y0f;
-    const int x0 = min(max(static_cast<int>(x0f), 0), kWinX - 2);
-    const int y0 = min(max(static_cast<int>(y0f), 0), win_y - 2);
-    const float* p = win + y0 * kWinX + x0;
-    return (p[0] * (1.0f - fx) + p[1] * fx) * (1.0f - fy)
-           + (p[kWinX] * (1.0f - fx) + p[kWinX + 1] * fx) * fy;
-}
-
-__global__ void __launch_bounds__(kThreads)
-desc_grid(const float* __restrict__ wins, int win_y,
-          const float* __restrict__ xs, const float* __restrict__ ys,
-          const float* __restrict__ x0s, const float* __restrict__ y0s,
-          const float* __restrict__ sigmas, const float* __restrict__ angs,
-          int W, int H, const float* __restrict__ gauss,
-          const float* __restrict__ tile, float* __restrict__ out) {
-    extern __shared__ float4 win4[];
-    __shared__ int s_bin[kSamples];
-    __shared__ float s_lo[kSamples];
-    __shared__ float s_hi[kSamples];
-    __shared__ float s_b[kGrid * 32];  // [y][tx][bin]
-    const float* win = reinterpret_cast<const float*>(win4);
-    const int slot = blockIdx.x;
-    const int t = threadIdx.x;
-
-    load_window(win4, wins, win_y, slot);
-
-    const float x = xs[slot];
-    const float y = ys[slot];
-    const float x0f = x0s[slot];
-    const float y0f = y0s[slot];
-    const float sbp = fabsf(3.0f * sigmas[slot]);
-    const bool ok = sbp > 0.0f;
-    const float c = cosf(angs[slot]);
-    const float s = sinf(angs[slot]);
-    // image bounds in window-local coordinates (texture clamp addressing)
-    const float xlo = 0.0f - x0f;
-    const float xhi = static_cast<float>(W - 1) - x0f;
-    const float ylo = 0.0f - y0f;
-    const float yhi = static_cast<float>(H - 1) - y0f;
-    __syncthreads();
-
-    for (int k = t; k < kSamples; k += kThreads) {
-        const int iy = k / kGrid;
-        const int ix = k - iy * kGrid;
-        // sample offsets -2.5 + 1/16 + i/8 (s_desc_notile.cu:29,57-58)
-        const float sx = -2.4375f + static_cast<float>(ix) * 0.125f;
-        const float sy = -2.4375f + static_cast<float>(iy) * 0.125f;
-        const float ptx = c * sx - s * sy;
-        const float pty = c * sy + s * sx;
-        const float pxr = (x + ptx * sbp) - x0f;
-        const float pyr = (y + pty * sbp) - y0f;
-        const float dx =
-            bilinear(win, win_y, pxr + c, pyr + s, xlo, xhi, ylo, yhi)
-            - bilinear(win, win_y, pxr - c, pyr - s, xlo, xhi, ylo, yhi);
-        const float dy =
-            bilinear(win, win_y, pxr - s, pyr + c, xlo, xhi, ylo, yhi)
-            - bilinear(win, win_y, pxr + s, pyr - c, xlo, xhi, ylo, yhi);
-        const float mod = hypotf(dx, dy);
-        float th = atan2f(dy, dx);
-        if (th < 0.0f) th = th + psk::kPi2;
-        const float tth = th * psk::k4RPi;
-        const float fo = floorf(tth);
-        const float do0 = tth - fo;
-        const float ww = ok ? gauss[k] * mod : 0.0f;
-        s_bin[k] = static_cast<int>(fo) & 7;
-        s_lo[k] = (1.0f - do0) * ww;
-        s_hi[k] = do0 * ww;
-    }
-    __syncthreads();
-
-    // x tiles: B[y][tx][b] = sum_j A[y][8 tx + j][b] * tile[j]
-    for (int k = t; k < kGrid * 32; k += kThreads) {
-        const int yy = k >> 5;
-        const int tx = (k >> 3) & 3;
-        const int b = k & 7;
-        float acc = 0.0f;
-        for (int j = 0; j < 16; ++j) {
-            const int i = yy * kGrid + 8 * tx + j;
-            const int b0 = s_bin[i];
-            const float a = b0 == b ? s_lo[i]
-                                    : (((b0 + 1) & 7) == b ? s_hi[i] : 0.0f);
-            acc = acc + a * tile[j];
-        }
-        s_b[k] = acc;
-    }
-    __syncthreads();
-
-    // y tiles: D[ty][tx][b] = sum_j B[8 ty + j][tx][b] * tile[j]
-    if (t < 128) {
-        const int ty = t >> 5;
-        const int rest = t & 31;
-        float acc = 0.0f;
-        for (int j = 0; j < 16; ++j)
-            acc = acc + s_b[((8 * ty + j) << 5) + rest] * tile[j];
-        out[static_cast<size_t>(slot) * 128 + t] = acc;
-    }
-}
-
 
 __device__ __forceinline__ float wrap_2pi(float th) {
     if (th < 0.0f) th = th + psk::kPi2;
@@ -244,7 +136,7 @@ __device__ __forceinline__ void bins_out(const float* bins, float* out,
     if (lane < kBins) out[tile * kBins + lane] = mine;
 }
 
-// A row of K12/K13: its plane, K8's window origin (x0, ya) in the plane,
+// A row of K9/K12/K13: its plane, K8's window origin (x0, ya) in the plane,
 // the footprint box [bx0, bx1] x [by0, by1] in window-local pixels, and
 // whether the unclamped box lies inside the image (then no sample
 // coordinate reaches the image bounds and their clamps change nothing).
@@ -349,6 +241,149 @@ __device__ __forceinline__ float box_bilinear(const RowWindow& r,
     const float v11 = window_px<kStaged>(r, box, yi + 1, xi + 1);
     return (v00 * (1.0f - fx) + v01 * fx) * (1.0f - fy)
            + (v10 * (1.0f - fx) + v11 * fx) * fy;
+}
+
+// K9: warp w owns grid rows 5 w .. 5 w + 4 (200 samples); a row's entries
+// are padded to 41, which spreads the x-tile walk's reads over the banks.
+constexpr int kRowsPerWarp = kGrid / kWarps;
+constexpr int kRowPad = kGrid + 1;
+constexpr int kWarpSamples = kRowsPerWarp * kGrid;
+constexpr int kWarpPad = kRowsPerWarp * kRowPad;
+// B[y][tx][b] of the x tiles at b * kBStride + 4 y + tx: the y-tile lanes
+// (tx, b) of one output row read 32 banks
+constexpr int kBStride = 4 * kGrid + 4;
+static_assert(kRowsPerWarp * kWarps == kGrid, "whole grid rows a warp");
+
+// The warp's 200 samples of the NoTile grid (grid_descriptors_windowed,
+// s_desc_notile.cu:31-129): the rotated-derivative gradient from four
+// bilinear samples, hypotf, atan2f, the Gaussian weight and the two
+// orientation bins, kept as (bin, low weight, high weight).  The
+// expressions are those of _bilinear_win and grid_descriptors_windowed
+// in window-local coordinates.
+template <bool kStaged, bool kClamp>
+__device__ void grid_samples(const RowWindow& r, const float* box,
+                             const float* __restrict__ gauss, float x,
+                             float y, float sbp, float c, float s,
+                             float2* wts, unsigned char* bins) {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const float x0f = static_cast<float>(r.x0);
+    const float y0f = static_cast<float>(r.ya);
+    // image bounds in window-local coordinates (texture clamp addressing)
+    const float xlo = 0.0f - x0f;
+    const float xhi = static_cast<float>(r.W - 1) - x0f;
+    const float ylo = 0.0f - y0f;
+    const float yhi = static_cast<float>(r.H - 1) - y0f;
+    auto bil = [&](float px, float py) {
+        return box_bilinear<kStaged, kClamp>(r, box, px, py, xlo, xhi, ylo,
+                                             yhi);
+    };
+    for (int f = lane; f < kWarpSamples; f += 32) {
+        const int row = f / kGrid;
+        const int ix = f - row * kGrid;
+        const int iy = warp * kRowsPerWarp + row;
+        // sample offsets -2.5 + 1/16 + i/8 (s_desc_notile.cu:29,57-58)
+        const float sx = -2.4375f + static_cast<float>(ix) * 0.125f;
+        const float sy = -2.4375f + static_cast<float>(iy) * 0.125f;
+        const float ptx = c * sx - s * sy;
+        const float pty = c * sy + s * sx;
+        const float pxr = (x + ptx * sbp) - x0f;
+        const float pyr = (y + pty * sbp) - y0f;
+        const float dx = bil(pxr + c, pyr + s) - bil(pxr - c, pyr - s);
+        const float dy = bil(pxr - s, pyr + c) - bil(pxr + s, pyr - c);
+        const float mod = hypotf(dx, dy);
+        float th = atan2f(dy, dx);
+        if (th < 0.0f) th = th + psk::kPi2;
+        const float tth = th * psk::k4RPi;
+        const float fo = floorf(tth);
+        const float do0 = tth - fo;
+        const float ww = __ldg(gauss + iy * kGrid + ix) * mod;
+        const int at = row * kRowPad + ix;
+        wts[at] = make_float2((1.0f - do0) * ww, do0 * ww);
+        bins[at] = static_cast<unsigned char>(static_cast<int>(fo) & 7);
+    }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+desc_grid_stack(const float* __restrict__ stack, int L, int H, int W,
+                const int* __restrict__ lpos, const float* __restrict__ xs,
+                const float* __restrict__ ys,
+                const float* __restrict__ sigmas,
+                const float* __restrict__ angs, int win, int win_y,
+                int capacity, const float* __restrict__ gauss,
+                const float* __restrict__ tile, float* __restrict__ out) {
+    extern __shared__ float box[];
+    __shared__ float2 s_wts[kWarps][kWarpPad];
+    __shared__ unsigned char s_bin[kWarps][kWarpPad];
+    __shared__ float s_b[kBins * kBStride];
+    __shared__ float s_tile[16];
+    const int slot = blockIdx.x;
+    const int t = threadIdx.x;
+    const int warp = t >> 5;
+    const int lane = t & 31;
+    const float x = xs[slot];
+    const float y = ys[slot];
+    const float sbp = fabsf(3.0f * sigmas[slot]);
+    const float c = cosf(angs[slot]);
+    const float s = sinf(angs[slot]);
+    float* dst = out + static_cast<size_t>(slot) * 128;
+    if (!(sbp > 0.0f)) {
+        // every sample's weight is 0, and so is every sum of the window form
+        if (t < 128) dst[t] = 0.0f;
+        return;
+    }
+    const RowWindow r = row_window(stack, L, H, W, lpos[slot], x, y, sbp,
+                                   fabsf(c) + fabsf(s), win, win_y);
+    const bool staged = r.bw * (r.by1 - r.by0 + 1) <= capacity;
+    if (staged) stage_box(box, r);
+    if (t < 16) s_tile[t] = tile[t];
+    __syncthreads();
+
+    float2* wts = s_wts[warp];
+    unsigned char* bins = s_bin[warp];
+    if (!staged)
+        grid_samples<false, true>(r, box, gauss, x, y, sbp, c, s, wts, bins);
+    else if (r.interior)
+        grid_samples<true, false>(r, box, gauss, x, y, sbp, c, s, wts, bins);
+    else
+        grid_samples<true, true>(r, box, gauss, x, y, sbp, c, s, wts, bins);
+    __syncwarp();
+
+    // x tiles of the warp's rows, lane (row, tx) for 20 lanes:
+    // B[y][tx][b] = sum_j A[y][8 tx + j][b] * tile[j] in the order
+    // j = 0..15.  A sample is non-zero in its two bins only, and the terms
+    // left out are +0.0 added to a sum of non-negative terms, which
+    // changes no bit.
+    if (lane < kRowsPerWarp * 4) {
+        const int row = lane >> 2;
+        const int tx = lane & 3;
+        const float2* w = wts + row * kRowPad + 8 * tx;
+        const unsigned char* b = bins + row * kRowPad + 8 * tx;
+        float* sb = s_b + 4 * (warp * kRowsPerWarp + row) + tx;
+#pragma unroll
+        for (int k = 0; k < kBins; ++k) sb[k * kBStride] = 0.0f;
+#pragma unroll 4
+        for (int j = 0; j < 16; ++j) {
+            const float2 v = w[j];
+            const int b0 = b[j];
+            const int b1 = (b0 + 1) & 7;
+            sb[b0 * kBStride] = sb[b0 * kBStride] + v.x * s_tile[j];
+            sb[b1 * kBStride] = sb[b1 * kBStride] + v.y * s_tile[j];
+        }
+    }
+    __syncthreads();
+
+    // y tiles: D[ty][tx][b] = sum_j B[8 ty + j][tx][b] * tile[j], in the
+    // order j = 0..15, one output a thread
+    if (t < 128) {
+        const int ty = t >> 5;
+        const float* col = s_b + (t & 7) * kBStride + ((t >> 3) & 3)
+                           + 32 * ty;
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) acc = acc + col[4 * j] * s_tile[j];
+        dst[t] = acc;
+    }
 }
 
 // K12's tiles of this warp (grid_rounded_body, one lane per rounded point
@@ -588,41 +623,39 @@ desc_iloop_stack(const float* __restrict__ stack, int L, int H, int W,
 
 }  // namespace
 
-// wins: (n, win_y, 128) windows (win_y a multiple of 4); x, y: keypoint
-// positions; x0, y0: window origins as floats; sigma, angle: (n,) f32;
-// W, H: the octave's size; gauss: (40, 40); tile: (16,); out: (n, 128).
-PSK_API int psk_desc_grid(const float* wins, int win_y, const float* x,
-                          const float* y, const float* x0, const float* y0,
-                          const float* sigma, const float* angle, int n,
-                          int W, int H, const float* gauss,
-                          const float* tile, float* out, void* stream) {
-    const int smem = win_y * kWinX * static_cast<int>(sizeof(float));
-    cudaError_t err = cudaFuncSetAttribute(
-        desc_grid, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    desc_grid<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        wins, win_y, x, y, x0, y0, sigma, angle, W, H, gauss, tile, out);
-    return psk::status();
-}
-
-// Grid (K12) and ILoop (K13) from the stack.  stack: (L, H, W) f32;
-// lpos: (n,) i32 (clamped to 0..L-1 here); x, y, sigma, angle: (n,) f32;
-// win: the descriptor window (K8's exact origins), win_y its rows;
-// capacity: floats of dynamic shared memory for a row's footprint (0:
-// every row reads the stack through L2); out: (n, 128).
-template <typename Kernel>
+// NoTile (K9), Grid (K12) and ILoop (K13) from the stack.  stack:
+// (L, H, W) f32; lpos: (n,) i32 (clamped to 0..L-1 here); x, y, sigma,
+// angle: (n,) f32; win: the descriptor window (K8's exact origins), win_y
+// its rows; capacity: floats of dynamic shared memory for a row's footprint
+// (0: every row reads the stack through L2); K9 also takes gauss: (40, 40)
+// and tile: (16,); out: (n, 128).
+template <typename Kernel, typename... Tables>
 static int launch_stack_rows(Kernel kernel, const float* stack, int L,
                              int H, int W, const int* lpos, const float* x,
                              const float* y, const float* sigma,
                              const float* angle, int n, int win, int win_y,
-                             int capacity, float* out, void* stream) {
+                             int capacity, float* out, void* stream,
+                             Tables... tables) {
     const int smem = capacity * static_cast<int>(sizeof(float));
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        stack, L, H, W, lpos, x, y, sigma, angle, win, win_y, capacity, out);
+        stack, L, H, W, lpos, x, y, sigma, angle, win, win_y, capacity,
+        tables..., out);
     return psk::status();
+}
+
+PSK_API int psk_desc_grid_stack(const float* stack, int L, int H, int W,
+                                const int* lpos, const float* x,
+                                const float* y, const float* sigma,
+                                const float* angle, int n, int win,
+                                int win_y, int capacity, const float* gauss,
+                                const float* tile, float* out,
+                                void* stream) {
+    return launch_stack_rows(desc_grid_stack, stack, L, H, W, lpos, x, y,
+                             sigma, angle, n, win, win_y, capacity, out,
+                             stream, gauss, tile);
 }
 
 PSK_API int psk_desc_grid_rounded_stack(const float* stack, int L, int H,

@@ -184,10 +184,10 @@ def dispatch_descriptors(plan: ExtractorPlan, consts: ConstInfo | None,
     """Descriptor-mode dispatch (popsift_tpu/extract.py:185-237).  Loop
     descriptors read the gradient field (K6), or the stack (K11) with
     ``stack_kernels``.  The sampling modes read the blurred stack through
-    per-row windows: NoTile and IGrid, which compute the same numbers,
-    with K8 and K9 and ``consts``' two descriptor tables on the stack's
-    device; Grid with K12 and ILoop with K13, which read the windows
-    straight from the stack."""
+    per-row windows, which their kernels read straight from the stack:
+    NoTile and IGrid, which compute the same numbers, with K9 and
+    ``consts``' two descriptor tables on the stack's device; Grid with K12
+    and ILoop with K13."""
     if plan.desc_mode == DescMode.LOOP:
         return ops_desc.loop_descriptors(
             field, xpos, ypos, lpos, sigma, ang, plan.desc_win,

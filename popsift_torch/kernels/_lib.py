@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 KERNELS = ("sep_blur", "grad_field", "detect", "refine", "ori_hist",
-           "desc_loop", "octave_chain", "gather_windows", "desc_grid",
+           "desc_loop", "octave_chain", "gather_windows", "desc_grid_stack",
            "ori_hist_stack", "desc_loop_stack", "desc_grid_rounded_stack",
            "desc_iloop_stack", "blur_chain")
 
@@ -49,8 +49,8 @@ _SIGNATURES = {
     "psk_octave_chain": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
                          _I, _P],
     "psk_gather_windows": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
-    "psk_desc_grid": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                      _P, _P],
+    "psk_desc_grid_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _P, _P, _P, _P],
     "psk_ori_hist_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                            _P],
     "psk_desc_loop_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P,

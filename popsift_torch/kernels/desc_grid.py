@@ -1,6 +1,5 @@
-"""K9: NoTile/IGrid descriptors from per-slot windows, and K12: Grid and
-K13: ILoop descriptors from the stack through the same windows
-(csrc/desc_grid.cu).
+"""K9: NoTile/IGrid, K12: Grid and K13: ILoop descriptors, each read from
+the blurred stack through K8's window of the row (csrc/desc_grid.cu).
 
 The JAX package computes these steps as XLA (ops/descriptors.py:
 grid_descriptors_windowed, grid_rounded_descriptors_windowed and
@@ -19,11 +18,12 @@ are the arithmetic of the JAX gather forms, batched over the slots.
   rotated tile's bounding box, bilinear rotated-derivative gradients.
 
 The two bodies take a sampler, so the whole-plane forms in
-ops/descriptors.py run the same arithmetic on the octave's plane.  K12 and
-K13 (:func:`desc_grid_rounded_stack`, :func:`desc_iloop_stack`) read K8's
-window of each row straight from the (L, H, W) stack, only over the row's
-footprint (:func:`footprint_box`); their plain versions are K8's plain
-gather followed by the window forms (:func:`desc_grid_rounded_plain`,
+ops/descriptors.py run the same arithmetic on the octave's plane.  K9, K12
+and K13 (:func:`desc_grid_stack`, :func:`desc_grid_rounded_stack`,
+:func:`desc_iloop_stack`) read K8's window of each row straight from the
+(L, H, W) stack, only over the row's footprint (:func:`footprint_box`);
+their plain versions are K8's plain gather followed by the window forms
+(:func:`desc_grid_plain`, :func:`desc_grid_rounded_plain`,
 :func:`desc_iloop_plain`).
 """
 
@@ -41,7 +41,7 @@ _CHUNK = 256
 # (16384 samples a row) forms
 CHUNK_GRID = 64
 CHUNK_ILOOP = 16
-# floats of shared memory a K12/K13 block stages a row's footprint in
+# floats of shared memory a K9/K12/K13 block stages a row's footprint in
 # (32 KB: boxes up to 90 x 90, sbp ~ 11 at 45 degrees); a row whose box
 # holds more reads its taps from the stack through L2
 STAGE_FLOATS = 8192
@@ -355,9 +355,10 @@ def footprint_half(sigma, ang) -> torch.Tensor:
     """(n,) int64 half side of each row's footprint box, ceil(2.5 bsz sbp
     + 2) with bsz = |cos| + |sin| and sbp = 3 sigma (at most 256).  The
     Grid samples lie within 2.4375 bsz sbp of the keypoint, rounded to a
-    pixel, with taps one pixel further; the ILoop samples within 2.5 bsz
-    sbp, with rotated-derivative taps one pixel further and the bilinear
-    corner's second pixel."""
+    pixel, with taps one pixel further; the NoTile samples within 2.4375
+    bsz sbp and the ILoop samples within 2.5 bsz sbp, each with
+    rotated-derivative taps one pixel further and the bilinear corner's
+    second pixel."""
     sbp = torch.abs(DESC_MAGNIFY * sigma)
     bsz = torch.abs(torch.cos(ang)) + torch.abs(torch.sin(ang))
     return torch.ceil(2.5 * bsz * sbp + 2.0).clamp(max=256.0) \
@@ -369,9 +370,9 @@ def footprint_box(x, y, sigma, ang, win: int, half=None):
     window (:func:`window_origins`): the inclusive box (bx0, bx1, by0,
     by1), (n,) int64 each, of +-``half`` (:func:`footprint_half` by
     default) around (floor(x - x0), floor(y - ya)), clamped to the
-    (win_y, 128) window.  Every tap of the Grid and ILoop forms lies
-    inside; K12 and K13 stage this box widened by one pixel on each
-    side."""
+    (win_y, 128) window.  Every tap of the NoTile, Grid and ILoop forms
+    lies inside; K9, K12 and K13 stage this box widened by one pixel on
+    each side."""
     win_y, win_x = rolled_window_dims(win)
     x0, ya = window_origins(x, y, win)
     if half is None:
@@ -393,6 +394,14 @@ def stack_windows_plain(stack: torch.Tensor, x, y, lpos, win: int):
     return wins, x0.to(torch.float32), ya.to(torch.float32)
 
 
+def desc_grid_stack_plain(stack, x, y, lpos, sigma, ang, win: int,
+                          desc_gauss, desc_tile) -> torch.Tensor:
+    _, h, w = stack.shape
+    wins, x0f, yaf = stack_windows_plain(stack, x, y, lpos, win)
+    return desc_grid_plain(wins, x, y, x0f, yaf, sigma, ang, w, h,
+                           desc_gauss, desc_tile)
+
+
 def desc_grid_rounded_stack_plain(stack, x, y, lpos, sigma, ang,
                                   win: int) -> torch.Tensor:
     _, h, w = stack.shape
@@ -405,42 +414,6 @@ def desc_iloop_stack_plain(stack, x, y, lpos, sigma, ang,
     _, h, w = stack.shape
     wins, x0f, yaf = stack_windows_plain(stack, x, y, lpos, win)
     return desc_iloop_plain(wins, x, y, x0f, yaf, sigma, ang, w, h)
-
-
-def _check_windows(name: str, wins: torch.Tensor) -> None:
-    if wins.dim() != 3 or wins.shape[2] != 128 or wins.shape[1] % 4 \
-            or wins.dtype != torch.float32:
-        raise ValueError(f"{name} takes (n, win_y, 128) float32 windows "
-                         "with win_y a multiple of 4")
-
-
-def _rows_call(name: str, wins, w: int, h: int, rows, tables=()):
-    """Launch ``name`` on (n, win_y, 128) windows with the per-row vectors
-    ``rows`` (x, y, x0, y0, sigma, angle) and optional device tables."""
-    dev = _lib.check_cuda(name, wins)
-    rows = [v.to(device=dev, dtype=torch.float32).contiguous()
-            for v in (*rows, *tables)]
-    n, win_y, _ = wins.shape
-    out = torch.empty((n, 128), dtype=torch.float32, device=dev)
-    if n:
-        ptrs = [v.data_ptr() for v in rows]
-        _lib.call(name, dev, wins.data_ptr(), win_y, *ptrs[:6], n, w, h,
-                  *ptrs[6:], out.data_ptr())
-    return out
-
-
-def desc_grid(wins: torch.Tensor, x, y, x0f, y0f, sigma, ang, w: int,
-              h: int, desc_gauss: torch.Tensor,
-              desc_tile: torch.Tensor) -> torch.Tensor:
-    """(n, 128) unnormalised NoTile/IGrid descriptors of keypoints (x, y)
-    at scale ``sigma`` and angle ``ang`` from their (n, win_y, 128)
-    windows, whose origins in the (h, w) octave are (x0f, y0f)."""
-    _check_windows("desc_grid", wins)
-    if wins.device.type == "cpu":
-        return desc_grid_plain(wins, x, y, x0f, y0f, sigma, ang, w, h,
-                               desc_gauss, desc_tile)
-    return _rows_call("desc_grid", wins, w, h, (x, y, x0f, y0f, sigma, ang),
-                      (desc_gauss, desc_tile))
 
 
 def _check_stack(name: str, stack: torch.Tensor, win: int,
@@ -459,11 +432,13 @@ def _on(dev, v, dtype):
 
 
 def _stack_rows_call(name: str, stack, x, y, lpos, sigma, ang, win: int,
-                     stage: int) -> torch.Tensor:
+                     stage: int, tables=()) -> torch.Tensor:
+    """Launch ``name`` on the rows of the (L, H, W) stack, with optional
+    float32 device tables after the staging capacity."""
     dev = _lib.check_cuda(name, stack)
     lpos = _on(dev, lpos, torch.int32)
-    x, y, sigma, ang = (_on(dev, v, torch.float32)
-                        for v in (x, y, sigma, ang))
+    x, y, sigma, ang, *tables = (_on(dev, v, torch.float32)
+                                 for v in (x, y, sigma, ang, *tables))
     L, H, W = stack.shape
     n = int(x.shape[0])
     out = torch.empty((n, 128), dtype=torch.float32, device=dev)
@@ -471,8 +446,26 @@ def _stack_rows_call(name: str, stack, x, y, lpos, sigma, ang, win: int,
         _lib.call(name, dev, stack.data_ptr(), L, H, W, lpos.data_ptr(),
                   x.data_ptr(), y.data_ptr(), sigma.data_ptr(),
                   ang.data_ptr(), n, win, rolled_window_dims(win)[0], stage,
-                  out.data_ptr())
+                  *(t.data_ptr() for t in tables), out.data_ptr())
     return out
+
+
+def desc_grid_stack(stack: torch.Tensor, x, y, lpos, sigma, ang, win: int,
+                    desc_gauss: torch.Tensor, desc_tile: torch.Tensor,
+                    stage: int = STAGE_FLOATS) -> torch.Tensor:
+    """(n, 128) unnormalised NoTile/IGrid descriptors (K9) of keypoints
+    (x, y) at level ``lpos`` of the (L, H, W) ``stack``, scale ``sigma``
+    and angle ``ang``: the numbers of K8's exact-origin windows (descriptor
+    window ``win``) through :func:`desc_grid_plain` with the (40, 40)
+    ``desc_gauss`` and (16,) ``desc_tile`` tables.  ``stage``: floats of
+    shared memory for a row's footprint on the card (0: every row reads
+    the stack through L2)."""
+    _check_stack("desc_grid_stack", stack, win, stage)
+    if stack.device.type == "cpu":
+        return desc_grid_stack_plain(stack, x, y, lpos, sigma, ang, win,
+                                     desc_gauss, desc_tile)
+    return _stack_rows_call("desc_grid_stack", stack, x, y, lpos, sigma,
+                            ang, win, stage, (desc_gauss, desc_tile))
 
 
 def desc_grid_rounded_stack(stack: torch.Tensor, x, y, lpos, sigma, ang,

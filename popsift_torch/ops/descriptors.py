@@ -5,11 +5,11 @@ Loop descriptors read the gradient field (K6), or the blurred stack (K11)
 on the stack-kernel path.  The sampling modes read the blurred stack
 through one window per row (K8's exact-origin window) and compute each
 descriptor from it: NoTile and IGrid, which compute the same numbers, on a
-rotated 40x40 grid (:func:`grid_descriptors_windowed`: K8 writes the
-windows, K9 reads them); Grid on rotated 16x16 grids per tile rounded to
-pixels (:func:`grid_rounded_descriptors_windowed`, K12); ILoop on
-axis-aligned 32x32 grids per tile (:func:`iloop_descriptors_windowed`,
-K13).  K12 and K13 read the window's pixels straight from the stack.  The
+rotated 40x40 grid (:func:`grid_descriptors_windowed`, K9); Grid on
+rotated 16x16 grids per tile rounded to pixels
+(:func:`grid_rounded_descriptors_windowed`, K12); ILoop on axis-aligned
+32x32 grids per tile (:func:`iloop_descriptors_windowed`, K13).  All three
+kernels read the window's pixels straight from the stack.  The
 whole-plane forms (:func:`grid_descriptors`,
 :func:`grid_rounded_descriptors`, :func:`iloop_descriptors`) sample the
 octave's plane instead and are kept for the tests that hold the windowed
@@ -27,11 +27,10 @@ import torch
 from ..constants import DESC_MAGNIFY
 from ..kernels.binwin import desc_loop, desc_loop_stack
 from ..kernels.desc_grid import (CHUNK_GRID, CHUNK_ILOOP,  # noqa: F401
-                                 _grid_steps, _tile_weight_matrix, desc_grid,
-                                 desc_grid_rounded_stack, desc_iloop_stack,
-                                 grid_histograms, grid_points,
-                                 grid_rounded_body, iloop_body)
-from ..kernels.windows import gather_windows_exact
+                                 _grid_steps, _tile_weight_matrix,
+                                 desc_grid_rounded_stack, desc_grid_stack,
+                                 desc_iloop_stack, grid_histograms,
+                                 grid_points, grid_rounded_body, iloop_body)
 from .orientation import max_sigma
 
 
@@ -97,19 +96,6 @@ def grid_descriptors(stack: torch.Tensor, xpos, ypos, lpos, sigma, ang,
     return grid_histograms(dx, dy, ok, desc_gauss, desc_tile)
 
 
-def _row_windows(stack: torch.Tensor, xpos, ypos, lpos, win: int):
-    """K8's (win_y, 128) window of each row of the unpadded (L, H, W)
-    stack, at column round(x) - win/2 and row 8 floor((round(y) - win/2) /
-    8), with clamp addressing.  Returns (windows, x0, ya) with the origins
-    as float32."""
-    L = stack.shape[0]
-    x0 = torch.round(xpos).to(torch.int32) - win // 2
-    y0 = torch.round(ypos).to(torch.int32) - win // 2
-    lp = lpos.to(torch.int32).clamp(0, L - 1)
-    wins, ya = gather_windows_exact(stack, lp, y0, x0, win)
-    return wins, x0.to(torch.float32), ya.to(torch.float32)
-
-
 def _zero_invalid(desc: torch.Tensor, valid) -> torch.Tensor:
     if valid is None:
         return desc
@@ -119,13 +105,11 @@ def _zero_invalid(desc: torch.Tensor, valid) -> torch.Tensor:
 def grid_descriptors_windowed(stack: torch.Tensor, xpos, ypos, lpos, sigma,
                               ang, win: int, desc_gauss, desc_tile,
                               valid=None) -> torch.Tensor:
-    """(n, 128) NoTile/IGrid descriptors through per-row windows: K8's
-    window (:func:`_row_windows`), then K9 samples it in window-local
-    coordinates.  ``valid`` (n,) bool zeroes rows."""
-    _, h, w = stack.shape
-    wins, x0, ya = _row_windows(stack, xpos, ypos, lpos, win)
-    return _zero_invalid(desc_grid(wins, xpos, ypos, x0, ya, sigma, ang, w,
-                                   h, desc_gauss, desc_tile), valid)
+    """(n, 128) NoTile/IGrid descriptors through K8's windows, which K9
+    reads straight from the stack and samples in window-local coordinates.
+    ``valid`` (n,) bool zeroes rows."""
+    return _zero_invalid(desc_grid_stack(stack, xpos, ypos, lpos, sigma, ang,
+                                         win, desc_gauss, desc_tile), valid)
 
 
 def grid_rounded_descriptors_windowed(stack: torch.Tensor, xpos, ypos, lpos,

@@ -1,11 +1,15 @@
-"""The footprint that K12 (Grid) and K13 (ILoop) stage from the stack, and
-K13's list of the samples that carry weight, on the CPU.
+"""The footprint that K9 (NoTile), K12 (Grid) and K13 (ILoop) stage from
+the stack, and K13's list of the samples that carry weight, on the CPU.
 
-K12 and K13 read K8's (win_y, 128) window of a row only over the row's
+K9, K12 and K13 read K8's (win_y, 128) window of a row only over the row's
 footprint box (kernels/desc_grid.py:footprint_box; the kernels stage it
-one pixel wider on each side).  The box must hold every pixel the Grid and
-ILoop forms read: here each window is filled with NaN outside the box, and
-the plain forms must give the same descriptors, bit for bit, with no NaN.
+one pixel wider on each side).  The box must hold every pixel the NoTile,
+Grid and ILoop forms read: here each window is filled with NaN outside the
+box, and the plain forms must give the same descriptors, bit for bit, with
+no NaN.  The box's half side, ceil(2.5 bsz sbp + 2), is the ILoop reach;
+the NoTile samples reach 2.4375 bsz sbp, their taps one pixel and the
+bilinear corner one more, which the "notile" cases show covered.
+A box one pixel smaller leaves NaN in every case, so the box is tight.
 A NaN read anywhere, even by a sample of zero weight, would reach its
 tile's bins (NaN * 0 is NaN).  The rows take every scale up to the
 largest an extremum can have (orientation.max_sigma(1.6, 3)), zero scale
@@ -29,6 +33,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from popsift_torch.constants import desc_tables_on  # noqa: E402
 from popsift_torch.kernels import desc_grid as tkgrid  # noqa: E402
 from popsift_torch.ops.descriptors import desc_window_size  # noqa: E402
 from popsift_torch.ops.orientation import max_sigma  # noqa: E402
@@ -94,27 +99,52 @@ def _nan_outside_box(wins, box):
 
 @pytest.mark.parametrize("kind", ["corners", "edges", "interior"])
 @pytest.mark.parametrize("h,w", [(200, 240), (64, 80)])
-@pytest.mark.parametrize("mode", ["grid", "iloop"])
+@pytest.mark.parametrize("mode", ["grid", "iloop", "notile"])
 def test_box_covers_every_tap(mode, h, w, kind):
     stack = _stack(h, w)
     x, y, lv, sig, ang = _rows(kind, h, w, seed=h + len(kind))
+    tables = desc_tables_on("cpu") if mode == "notile" else ()
     plain = {"grid": tkgrid.desc_grid_rounded_plain,
-             "iloop": tkgrid.desc_iloop_plain}[mode]
+             "iloop": tkgrid.desc_iloop_plain,
+             "notile": tkgrid.desc_grid_plain}[mode]
     wins, x0f, yaf = tkgrid.stack_windows_plain(stack, x, y, lv, WIN)
     box = tkgrid.footprint_box(x, y, sig, ang, WIN)
     assert all(bool((lo <= hi).all()) for lo, hi in zip(box[::2], box[1::2]))
     masked = _nan_outside_box(wins, box)
     assert bool(masked.isnan().any())
     with one_thread():
-        want = plain(wins, x, y, x0f, yaf, sig, ang, w, h)
-        got = plain(masked, x, y, x0f, yaf, sig, ang, w, h)
+        want = plain(wins, x, y, x0f, yaf, sig, ang, w, h, *tables)
+        got = plain(masked, x, y, x0f, yaf, sig, ang, w, h, *tables)
     assert not bool(got.isnan().any())
     assert torch.equal(got, want)
     # the wrapper's CPU form is the same composition
     fn = {"grid": tkgrid.desc_grid_rounded_stack,
-          "iloop": tkgrid.desc_iloop_stack}[mode]
+          "iloop": tkgrid.desc_iloop_stack,
+          "notile": tkgrid.desc_grid_stack}[mode]
     with one_thread():
-        assert torch.equal(fn(stack, x, y, lv, sig, ang, WIN), want)
+        assert torch.equal(fn(stack, x, y, lv, sig, ang, WIN, *tables), want)
+
+
+@pytest.mark.parametrize("kind", ["corners", "edges", "interior"])
+@pytest.mark.parametrize("h,w", [(200, 240), (64, 80)])
+@pytest.mark.parametrize("mode", ["grid", "iloop", "notile"])
+def test_box_one_pixel_smaller_misses_a_tap(mode, h, w, kind):
+    """The box is tight: one pixel less of half side leaves NaN in some
+    rows of every case above (of 217: Grid 5-38, ILoop and NoTile 20-65),
+    so the cases above would catch a box that is too small."""
+    stack = _stack(h, w)
+    x, y, lv, sig, ang = _rows(kind, h, w, seed=h + len(kind))
+    tables = desc_tables_on("cpu") if mode == "notile" else ()
+    plain = {"grid": tkgrid.desc_grid_rounded_plain,
+             "iloop": tkgrid.desc_iloop_plain,
+             "notile": tkgrid.desc_grid_plain}[mode]
+    wins, x0f, yaf = tkgrid.stack_windows_plain(stack, x, y, lv, WIN)
+    half = tkgrid.footprint_half(sig, ang) - 1
+    box = tkgrid.footprint_box(x, y, sig, ang, WIN, half=half)
+    with one_thread():
+        got = plain(_nan_outside_box(wins, box), x, y, x0f, yaf, sig, ang,
+                    w, h, *tables)
+    assert int(got.isnan().any(dim=1).sum()) >= 5
 
 
 def test_box_is_the_stated_formula():

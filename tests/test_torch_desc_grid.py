@@ -1,7 +1,8 @@
-"""popsift_torch's NoTile/IGrid descriptors (K8 + K9's plain versions)
-against popsift_tpu, on the setup of tests/test_desc_modes.py's
-test_grid_windowed_matches_plane: an L=4, 88x144 smoothed random stack and
-96 slots, near-border ones included, 90% of them valid.
+"""popsift_torch's NoTile/IGrid descriptors (K9's plain version: K8's
+plain windows, then the window form) against popsift_tpu, on the setup of
+tests/test_desc_modes.py's test_grid_windowed_matches_plane: an L=4,
+88x144 smoothed random stack and 96 slots, near-border ones included, 90%
+of them valid.
 
 Tolerances:
 
@@ -126,32 +127,27 @@ def test_whole_plane_matches_jax_whole_plane(setup):
 
 
 def test_desc_grid_takes_windows(setup):
-    """K9's plain version through its wrapper: rows are independent, so a
-    subset of slots gives the same rows (within 1e-6 x the largest entry:
-    the maths library's vector and scalar forms, chosen by an element's
-    place in the batch, may differ in the last bit); zero-scale slots give
-    zeros."""
+    """K9's plain version through its wrapper, which takes the stack and
+    places K8's windows itself: rows are independent, so a subset of slots
+    gives the same rows (within 1e-6 x the largest entry: the maths
+    library's vector and scalar forms, chosen by an element's place in the
+    batch, may differ in the last bit); zero-scale slots give zeros; a
+    stack that is not (L, H, W) float32 raises."""
     x, y, lv, sig, ang, _ = setup["targs"]
     stack, win = setup["stack"], setup["win"]
     g, t = desc_tables_on("cpu")
-    x0 = torch.round(x).to(torch.int32) - win // 2
-    y0 = torch.round(y).to(torch.int32) - win // 2
-    from popsift_torch.kernels.windows import gather_windows_exact
-    wins, ya = gather_windows_exact(stack, lv, y0, x0, win)
-    _, h, w = stack.shape
-    full = tkgrid.desc_grid(wins, x, y, x0.float(), ya.float(), sig, ang, w,
-                            h, g, t)
-    part = tkgrid.desc_grid(wins[5:9].contiguous(), x[5:9], y[5:9],
-                            x0[5:9].float(), ya[5:9].float(), sig[5:9] * 0,
-                            ang[5:9], w, h, g, t)
+    full = tkgrid.desc_grid_stack(stack, x, y, lv, sig, ang, win, g, t)
+    e = slice(5, 9)
+    part = tkgrid.desc_grid_stack(stack, x[e], y[e], lv[e], sig[e] * 0,
+                                  ang[e], win, g, t)
     assert not part.any()
-    part = tkgrid.desc_grid(wins[5:9].contiguous(), x[5:9], y[5:9],
-                            x0[5:9].float(), ya[5:9].float(), sig[5:9],
-                            ang[5:9], w, h, g, t)
-    _close(part.numpy(), full[5:9].numpy(), 1e-6)
+    part = tkgrid.desc_grid_stack(stack, x[e], y[e], lv[e], sig[e], ang[e],
+                                  win, g, t)
+    _close(part.numpy(), full[e].numpy(), 1e-6)
     with pytest.raises(ValueError):
-        tkgrid.desc_grid(wins[:, :, :64], x, y, x0.float(), ya.float(), sig,
-                         ang, w, h, g, t)
+        tkgrid.desc_grid_stack(stack[0], x, y, lv, sig, ang, win, g, t)
+    with pytest.raises(ValueError):
+        tkgrid.desc_grid_stack(stack.double(), x, y, lv, sig, ang, win, g, t)
 
 
 @pytest.mark.parametrize("mode", ["notile", "igrid", "grid", "iloop",

@@ -245,9 +245,9 @@ def test_wrappers_take_the_kernel_path_off_the_cpu(monkeypatch):
         lambda: windows.gather_windows(meta(6, 16, 32),
                                        *(meta(3, dtype=torch.int32)
                                          for _ in range(3)), 8, 8),
-        lambda: desc_grid.desc_grid(meta(3, 8, 128), *(meta(3)
-                                                      for _ in range(6)),
-                                    32, 16, meta(40, 40), meta(16)),
+        lambda: desc_grid.desc_grid_stack(
+            meta(6, 16, 32), meta(3), meta(3), meta(3, dtype=torch.int32),
+            meta(3), meta(3), 112, meta(40, 40), meta(16)),
         lambda: binwin.ori_hist_stack(meta(6, 16, 32), meta(3), meta(3),
                                       meta(3, dtype=torch.int32), meta(3)),
         lambda: binwin.desc_loop_stack(meta(6, 16, 32), meta(3), meta(3),

@@ -7,7 +7,7 @@ two trees on the same card.
 by default); run the tool in turns for two checkouts (A, B, B, A) in one
 run on the card, the parent unpacked with ``git archive`` into
 ``build/popsift_torch/``.  ``--kernels`` picks from K1, K2, K3, K4, K5,
-K10, K7, K6, K11, K12, K13 and ops (all by default).  It uses only functions that
+K10, K7, K6, K11, K9, K12, K13 and ops (all by default).  It uses only functions that
 every version of the port since K1's chain entry (``blur_chain``) has, on
 chip_smoke.py's seed-0 1080p scene:
 
@@ -26,11 +26,12 @@ chip_smoke.py's seed-0 1080p scene:
   peaks, whatever runs them);
 - K7: octave 0, both emit forms;
 - K6 and K11: the descriptor rows of the busiest octave;
-- K12 and K13: the Grid and ILoop descriptor steps on the same rows,
-  through ``ops/descriptors.py:grid_rounded_descriptors_windowed`` and
-  ``iloop_descriptors_windowed`` (K8 and the window kernel, or the kernel
-  that reads the stack, whichever the tree runs), with a digest of each
-  tree's descriptors (equal digests: bit-identical output);
+- K9, K12 and K13: the NoTile, Grid and ILoop descriptor steps on the
+  same rows, through ``ops/descriptors.py:grid_descriptors_windowed``,
+  ``grid_rounded_descriptors_windowed`` and ``iloop_descriptors_windowed``
+  (K8 and the window kernel, or the kernel that reads the stack,
+  whichever the tree runs), with a digest of each tree's descriptors
+  (equal digests: bit-identical output);
 - ops: the PyTorch operations per image of the default path
   (``chip_smoke.count_ops`` over the four 1080p scenes), and per scene
   the features, descriptor rows and a digest of them (equal digests:
@@ -57,8 +58,8 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parents[1]
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K10", "K7", "K6", "K11", "K12",
-           "K13", "ops")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K10", "K7", "K6", "K11", "K9",
+           "K12", "K13", "ops")
 
 
 def library_spans(torch, fn, calls: int) -> list[float]:
@@ -114,6 +115,7 @@ def main() -> int:
     sys.path.insert(0, str(root))
     import popsift_torch as pt
     from popsift_torch import extract as ext
+    from popsift_torch.constants import desc_tables_on
     from popsift_torch.gauss import build_gauss_info
     from popsift_torch.kernels import _lib, binwin, blur, detect, grad, octave
     from popsift_torch.ops import descriptors as ops_desc
@@ -208,7 +210,7 @@ def main() -> int:
                    f"from the stack",
                    lambda: ops_ori.assign_orientations(None, *kp,
                                                        stack=stack))
-    if {"K6", "K11", "K12", "K13"} & set(want):
+    if {"K6", "K11", "K9", "K12", "K13"} & set(want):
         _, o, stack, ex = best
         field = grad.grad_field(stack)
         num_ori, oris = ops_ori.assign_orientations(field, ex.xpos, ex.ypos,
@@ -225,16 +227,19 @@ def main() -> int:
         if "K11" in want:
             report(f"K11 octave {o}, {n} rows",
                    lambda: binwin.desc_loop_stack(stack, *rows, half), 50)
-        for key, mode, fn in (
-                ("K12", "Grid", ops_desc.grid_rounded_descriptors_windowed),
-                ("K13", "ILoop", ops_desc.iloop_descriptors_windowed)):
+        tables = desc_tables_on(dev)
+        for key, mode, fn, extra in (
+                ("K9", "NoTile", ops_desc.grid_descriptors_windowed, tables),
+                ("K12", "Grid", ops_desc.grid_rounded_descriptors_windowed,
+                 ()),
+                ("K13", "ILoop", ops_desc.iloop_descriptors_windowed, ())):
             if key not in want:
                 continue
-            out = fn(stack, *rows, plan.desc_win).cpu().numpy()
+            out = fn(stack, *rows, plan.desc_win, *extra).cpu().numpy()
             digest = hashlib.sha256(out.tobytes()).hexdigest()[:16]
             report(f"{mode} descriptors ({key}) octave {o}, {n} rows, "
                    f"sha256 {digest}",
-                   lambda: fn(stack, *rows, plan.desc_win), 50)
+                   lambda: fn(stack, *rows, plan.desc_win, *extra), 50)
     if "ops" in want:
         scenes = [cs.make_scene(seed, 1080, 1920) for seed in range(4)]
         print(f"default path ops per image: "
