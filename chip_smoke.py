@@ -12,9 +12,12 @@ JAX nor popsift_tpu.  In order it:
 2. checks every kernel against its plain PyTorch version on the card, on
    the inputs the main paths give it for a 1080p scene: the octave-0
    levels, DoG and stack for the blur, the blur's chain entry at every
-   octave that takes it, the octave chain (both emit modes, and bit for
-   bit against the per-level kernels, at every octave that takes it), the
-   gradient kernel, detection at every octave and on a DoG full of exact
+   octave that takes it (its field bit for bit against K2 on its own
+   stack, with equal digests, on all four scenes), the octave chain (both
+   emit modes, and bit for bit against the per-level kernels, at every
+   octave that takes it), the gradient kernel (though no 1080p path
+   launches it: K7 and K1's chain entry write the field), detection at
+   every octave and on a DoG full of exact
    ties (bit for bit), the octave-2 masks whose candidates the compaction
    budget trims (against the ones the CPU tests hold to the JAX package),
    and the real candidates and
@@ -41,8 +44,8 @@ JAX nor popsift_tpu.  In order it:
    kernel's bound;
 3. drives the default path, PopSift(Config()).enqueue(...).get(), on four
    distinct 1080p scenes with the launch counts reset just before, fails
-   if a kernel of that path was not launched, if gather_windows was
-   (counted or in the profile), or if the features per image
+   if a kernel of that path was not launched, if gather_windows or
+   grad_field was (counted or in the profile), or if the features per image
    moved from their recorded counts (and prints how the descriptor rows
    compare with those of the plain peaks), and checks that a repeated
    frame gives bit-identical features; it times five such passes (median and
@@ -54,22 +57,25 @@ JAX nor popsift_tpu.  In order it:
    path);
 4. drives the NoTile path, PopSift(Config(desc_mode=notile)), the same
    way, and checks that its keypoints are the default path's, that no
-   gather_windows ran (counted or in the profile), and per scene the
+   gather_windows or grad_field ran (counted or in the profile), and per
+   scene the
    descriptor rows whose footprint exceeds the staging capacity;
 5. drives the stack-kernel path (POPSIFT_TPU_STACK_KERNELS=1 on the
    default Config) the same way: no gradient-field, field-histogram,
-   field-descriptor or gather_windows launch (gather_windows neither in
-   the profile), and features equal to the default path's bit
+   field-descriptor or gather_windows launch (gather_windows and
+   grad_field neither in the profile), and features equal to the default
+   path's bit
    for bit; the switch is restored afterwards;
 6. drives the Grid and ILoop paths for one pass each (launches, keypoints
    equal to the default path's, bit-identical repeat, one profiled pass;
-   no gather_windows launch, counted or in the profile; per scene the
+   no gather_windows or grad_field launch, counted or in the profile; per
+   scene the
    descriptor rows whose footprint exceeds the staging capacity);
 7. holds the card's features of a small scene against the plain PyTorch
    versions run on the CPU, for all five paths;
-8. prints the kernel table as one JSON line (gather_windows's launches are
-   its counts summed over the five paths, each required to be 0) and,
-   last, the device line.
+8. prints the kernel table as one JSON line (the launches of
+   gather_windows and grad_field are their counts summed over the five
+   paths, each required to be 0) and, last, the device line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -132,21 +138,22 @@ BUDGET_MASKS = HERE / "tests" / "data" / "budget_masks_1080p.npz"
 # call for each octave that K7 does not take
 MAX_K1_CALLS = 6
 # The kernels each path launches (the others are not on it).
-LOOP_PATH = ("sep_blur", "blur_chain", "octave_chain", "grad_field",
-             "detect", "refine", "ori_hist", "desc_loop")
-NOTILE_PATH = ("sep_blur", "blur_chain", "octave_chain", "grad_field",
-               "detect", "refine", "ori_hist", "desc_grid_stack")
+LOOP_PATH = ("sep_blur", "blur_chain", "octave_chain", "detect", "refine",
+             "ori_hist", "desc_loop")
+NOTILE_PATH = ("sep_blur", "blur_chain", "octave_chain", "detect", "refine",
+               "ori_hist", "desc_grid_stack")
 STACK_PATH = ("sep_blur", "blur_chain", "octave_chain", "detect", "refine",
               "ori_hist_stack", "desc_loop_stack")
-GRID_PATH = ("sep_blur", "blur_chain", "octave_chain", "grad_field",
-             "detect", "refine", "ori_hist", "desc_grid_rounded_stack")
-ILOOP_PATH = ("sep_blur", "blur_chain", "octave_chain", "grad_field",
-              "detect", "refine", "ori_hist", "desc_iloop_stack")
+GRID_PATH = ("sep_blur", "blur_chain", "octave_chain", "detect", "refine",
+             "ori_hist", "desc_grid_rounded_stack")
+ILOOP_PATH = ("sep_blur", "blur_chain", "octave_chain", "detect", "refine",
+              "ori_hist", "desc_iloop_stack")
 # K9, K12 and K13 read the stack, and the default and stack paths take no
-# windows: no path launches K8
-NOT_ON_ANY_PATH = ("gather_windows",)
+# windows: no path launches K8.  K7 writes the field of octaves 0-3 and
+# K1's chain entry that of octaves 4-8: no 1080p path launches K2.
+NOT_ON_ANY_PATH = ("gather_windows", "grad_field")
 # the kernels the stack path must not launch: it reads no gradient field
-NOT_ON_STACK_PATH = ("grad_field", "ori_hist", "desc_loop") + NOT_ON_ANY_PATH
+NOT_ON_STACK_PATH = ("ori_hist", "desc_loop") + NOT_ON_ANY_PATH
 STACK_SWITCH = "POPSIFT_TPU_STACK_KERNELS"
 
 
@@ -779,13 +786,23 @@ def check_peak_ties(torch, dev) -> None:
           f"0-4)", flush=True)
 
 
-def check_blur_chain(torch, o, stack, dog, filters, spans,
-                     table: Table) -> None:
+def digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def check_blur_chain(torch, o, stack, dog, filters, spans, table: Table,
+                     timed: bool = True) -> str:
     """K1's chain entry on octave ``o`` (``stack`` and ``dog`` are what the
     path's per-level form computed from the same level 0): bit for bit
-    against its plain version, K1's plain version per level; timed at the
-    first such octave, the table's row."""
-    from popsift_torch.kernels import blur
+    against its plain version, K1's plain version per level, with and
+    without the field; the field bit for bit against K2 on the entry's
+    own stack (equal digests), its mag equal to the plain field and its
+    theta within 2 ulp (K2's own check), and the entry bit-identical run
+    to run.  With ``timed``, the entry is timed with the field, without it
+    and without it followed by K2 (the form it replaces); the first such
+    octave gives the table's row.  Returns the field's digest."""
+    from popsift_torch.kernels import blur, grad
 
     L, h, w = stack.shape
     lvl0 = stack[0].contiguous()
@@ -794,20 +811,86 @@ def check_blur_chain(torch, o, stack, dog, filters, spans,
     require(torch.equal(ks, ps) and torch.equal(kd, pd)
             and torch.equal(stack, ps) and torch.equal(dog, pd),
             f"K1 chain entry at octave {o}: kernel != plain")
-    err = max(max_abs(ks, ps), max_abs(kd, pd))
+    fs, fd, ff = blur.blur_chain(lvl0, filters, spans, emit_field=True)
+    require(torch.equal(fs, ks) and torch.equal(fd, kd),
+            f"K1 chain entry at octave {o}: the stack or DoG differ with "
+            f"the field")
+    k2 = grad.grad_field(fs)
+    d_field, d_k2 = digest(ff), digest(k2)
+    require(torch.equal(ff, k2) and d_field == d_k2,
+            f"K1 chain entry's field at octave {o} differs from K2 on its "
+            f"stack (sha256 {d_field} against {d_k2})")
+    pf = grad.grad_field_plain(ps)
+    require(torch.equal(ff[0::2], pf[0::2]),
+            f"K1 chain entry's mag at octave {o}: kernel != plain")
+    th_ulps = ulps(ff[1::2], pf[1::2])
+    require(th_ulps <= 2, f"K1 chain entry's theta at octave {o} differs "
+            f"from the plain field by {th_ulps} ulp")
+    again = blur.blur_chain(lvl0, filters, spans, emit_field=True)
+    require(all(torch.equal(a, b) for a, b in zip(again, (fs, fd, ff))),
+            f"K1 chain entry at octave {o}: not bit-identical run to run")
+    if not timed:
+        return d_field
+    err = max(max_abs(ks, ps), max_abs(kd, pd), max_abs(ff, pf))
     blocks, rows = blur.chain_bands(h)
-    ms = kernel_ms(lambda: blur.blur_chain(lvl0, filters, spans))
     print(f"  K1 chain entry at octave {o} ({h}x{w}, {blocks} blocks of "
-          f"{rows} rows): bit-equal to K1's plain version per level; "
-          f"{ms[0]:.6f} ms, device {fmt_ms(ms[1])} ms", flush=True)
+          f"{rows} rows): stack and DoG bit-equal to K1's plain version per "
+          f"level, with and without the field; field bit-equal to K2 on "
+          f"its stack (sha256 {d_field}), theta {th_ulps} ulp from the plain "
+          f"field; bit-identical run to run", flush=True)
+    ms = kernel_ms(lambda: blur.blur_chain(lvl0, filters, spans,
+                                           emit_field=True))
+    alone = kernel_ms(lambda: blur.blur_chain(lvl0, filters, spans))
+    then_k2 = kernel_ms(lambda: grad.grad_field(
+        blur.blur_chain(lvl0, filters, spans)[0]))
+    print(f"    with the field {ms[0]:.6f} ms, device {fmt_ms(ms[1])}; "
+          f"without {alone[0]:.6f}, device {fmt_ms(alone[1])}; without, "
+          f"then K2 {then_k2[0]:.6f}, device {fmt_ms(then_k2[1])}",
+          flush=True)
     if "blur_chain" in table.rows:
-        return
+        return d_field
     px = h * w
-    pms = cuda_ms(lambda: blur.blur_chain_plain(lvl0, filters, spans),
-                  reps=10)
-    table.add("blur_chain", f"K1 blur_chain octave {o} ({L},{h},{w}), spans "
-              f"{spans[1:]}", err, ms, pms, 4 * px * (1 + 2 * (L - 1)),
-              sum(OPS_BLUR_PER_TAP * 2 * s + 1 for s in spans[1:]) * px)
+    pms = cuda_ms(lambda: blur.blur_chain_plain(lvl0, filters, spans,
+                                                emit_field=True), reps=10)
+    table.add("blur_chain", f"K1 blur_chain octave {o} ({L},{h},{w}) with "
+              f"the field, spans {spans[1:]}", err, ms, pms,
+              4 * px * (1 + 2 * (L - 1)) + 8 * px * L,
+              sum(OPS_BLUR_PER_TAP * 2 * s + 1 for s in spans[1:]) * px
+              + OPS_GRAD * L * px)
+    return d_field
+
+
+def check_chain_fields(torch, pt, scenes, dev) -> None:
+    """K1's chain entry, with the field, on the octaves it takes of every
+    scene but the first, which check_kernels checked (check_blur_chain
+    untimed)."""
+    from popsift_torch import extract as ext
+    from popsift_torch.gauss import build_gauss_info
+    from popsift_torch.ops import pyramid as ops_pyr
+
+    cfg = pt.Config()
+    gauss = build_gauss_info(cfg)
+    for seed in range(1, len(scenes)):
+        scene = scenes[seed]
+        h_in, w_in = scene.shape
+        plan = ext.make_plan(cfg, w_in, h_in)
+        filters, spans = ops_pyr.chain_filters(gauss, plan.levels)
+        src = ext.to_unit_image(scene, dev)
+        digests = {}
+        for o in range(plan.octaves):
+            st, dg = ops_pyr.build_octave(src, o, plan.dims, plan.levels,
+                                          gauss, plan.sift_mode,
+                                          plan.upscale_factor)
+            if not ops_pyr.chain_eligible(st.shape[1], st.shape[2], spans):
+                digests[o] = check_blur_chain(torch, o, st, dg, filters,
+                                              spans, None, timed=False)
+            src = st
+        require(bool(digests), f"scene {seed}: no octave took K1's chain")
+        print(f"  scene {seed}: K1's chain entry at octaves "
+              f"{min(digests)}-{max(digests)}: stack and DoG bit-equal to "
+              f"the plain chain, field bit-equal to K2 on its stack and run "
+              f"to run; sha256 "
+              + ", ".join(digests.values()), flush=True)
 
 
 def tie_rich_dog(torch, shape, seed, dev):
@@ -1199,11 +1282,10 @@ def check_stack_descriptors(torch, plan, stack, rows, nbytes: int,
         scale = float(p.abs().max())
         row_err = (k - p).abs().amax(dim=1)
         off = int((row_err > 1e-5 * scale).sum())
-        digest = hashlib.sha256(k.cpu().numpy().tobytes()).hexdigest()[:16]
         print(f"  {label}: bit-identical run to run and through L2; within "
               f"{max_abs(k, p):.3g} of its plain version (largest entry "
               f"{scale:.3g}); {off} of {n} rows beyond 1e-5 of it; sha256 "
-              f"{digest}", flush=True)
+              f"{digest(k)}", flush=True)
         require(off <= allowed and float(row_err.max()) <= 1e-3 * scale,
                 f"{label} descriptors differ from the plain version")
         pms = cuda_ms(lambda: plain(*args), reps=10)
@@ -1560,6 +1642,7 @@ def main() -> int:
           flush=True)
     table = Table()
     check_kernels(torch, pt, scenes[0], table, torch.device("cuda"))
+    check_chain_fields(torch, pt, scenes, torch.device("cuda"))
     check_budget_masks(torch, pt, scenes, torch.device("cuda"))
 
     print("phase 3: the default path, ", end="")
@@ -1615,7 +1698,8 @@ def main() -> int:
              "stack": STACK_PATH, "grid": GRID_PATH, "iloop": ILOOP_PATH}
     for name in table.rows:
         by_path = {p: st["counts"][name] for p, st in stats.items()}
-        # K8 is on no path (its count, required 0 on each, is their sum)
+        # K8 and K2 are on no path (their counts, required 0 on each, are
+        # their sums)
         home = next((p for p, kern in homes.items() if name in kern), None)
         table.rows[name]["launches"] = (by_path[home] if home
                                         else sum(by_path.values()))

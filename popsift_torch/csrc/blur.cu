@@ -43,6 +43,21 @@
 // parent's per-level form spreads each level over two launches of many
 // blocks instead).  The tap arithmetic is blur_tile's, so every level is
 // bit-equal to the per-level call.
+//
+// The chain entry may also write the octave's gradient field, K2's
+// (csrc/grad.cu), which it replaces on these octaves.  After the chain's
+// last barrier every level of every band is in the stack, in L2, and each
+// block computes the field of its band's rows at every level from there:
+// a warp a row, its lanes along x, up to 4 chunks of 32 columns loaded
+// before their arithmetic, so that their latencies overlap.  That pass
+// adds one round of latency to the launch, and on the larger octaves the
+// field's instructions on the cluster's 16 SMs (K2 spreads them over the
+// card).  Computing each level's field inside the chain's phases
+// instead, from the bands in shared memory, put more dependent latency
+// on every level's critical path and took more device time on every
+// octave (PERF.md, section 6).  The expressions and their order are
+// K2's, built with --fmad=false, so the field is bit-equal to K2 on the
+// same stack.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -365,9 +380,53 @@ __device__ void chain_level(cg::cluster_group& cluster, const float* cur,
     __syncthreads();
 }
 
+// The field of a band's rows y0 .. y0+rb-1 at levels 0 .. L-1 of the
+// stack, in field (2L, H, W): a warp a row, its lanes along x, KC chunks
+// of 32 columns at a time, all their loads before any arithmetic (clamped
+// columns: a lane past the row computes a value it does not store).  The
+// stack is read through L2 (__ldcg), where the other blocks' writes are.
+// K2's expressions in its order.
+template <int KC>
+__device__ void band_field(const float* stack, float* field, int L, int H,
+                           int W, int y0, int rb) {
+    const int lane = threadIdx.x & 31;
+    const size_t hw = static_cast<size_t>(H) * W;
+    for (int r = threadIdx.x >> 5; r < L * rb; r += kChainThreads / 32) {
+        const int l = r / rb, gy = y0 + r - l * rb;
+        const float* s = stack + l * hw;
+        const float* row = s + static_cast<size_t>(gy) * W;
+        const float* up = s + static_cast<size_t>(max(gy - 1, 0)) * W;
+        const float* dn = s + static_cast<size_t>(min(gy + 1, H - 1)) * W;
+        float* mag = field + 2 * l * hw + static_cast<size_t>(gy) * W;
+        for (int x0 = lane; x0 - lane < W; x0 += 32 * KC) {
+            float r1[KC], r0[KC], d[KC], u[KC];
+#pragma unroll
+            for (int k = 0; k < KC; ++k) {
+                const int x = min(x0 + 32 * k, W - 1);
+                r1[k] = __ldcg(row + min(x + 1, W - 1));
+                r0[k] = __ldcg(row + max(x - 1, 0));
+                d[k] = __ldcg(dn + x);
+                u[k] = __ldcg(up + x);
+            }
+#pragma unroll
+            for (int k = 0; k < KC; ++k) {
+                const float dx = r1[k] - r0[k];
+                const float dy = d[k] - u[k];
+                const float m = sqrtf(dx * dx + dy * dy);
+                const float t = atan2f(dy, dx);
+                const int x = x0 + 32 * k;
+                if (x < W) {
+                    mag[x] = m;
+                    mag[hw + x] = t;
+                }
+            }
+        }
+    }
+}
+
 template <int P>
 __global__ void __launch_bounds__(kChainThreads)
-blur_chain(float* stack, float* dog, int H, int W,
+blur_chain(float* stack, float* dog, float* field, int H, int W,
            const __grid_constant__ ChainArgs c) {
     extern __shared__ __align__(16) float smem[];
     cg::cluster_group cluster = cg::this_cluster();
@@ -387,8 +446,17 @@ blur_chain(float* stack, float* dog, int H, int W,
             cluster, band[(l - 1) & 1], vb[l & 1], band[l & 1],
             stack + l * hw, dog + (l - 1) * hw, H, W, R, y0, rb,
             c.t[l], c.span[l]);
-    // no block may leave while another can still copy from its buffers
+    // no block may leave while another can still copy from its buffers,
+    // and every level of every band is in the stack
     cluster.sync();
+    if (field == nullptr) return;
+    // as many chunks of 32 columns at a time as a row has, up to 4
+    if (W <= 32)
+        band_field<1>(stack, field, c.levels, H, W, y0, rb);
+    else if (W <= 64)
+        band_field<2>(stack, field, c.levels, H, W, y0, rb);
+    else
+        band_field<4>(stack, field, c.levels, H, W, y0, rb);
 }
 
 int halo_class(int span) {
@@ -435,8 +503,8 @@ int launch_blur(const float* src, float* out, float* dog, int H, int W,
 }
 
 template <int P>
-int launch_chain(float* stack, float* dog, int H, int W, ChainArgs& c,
-                 cudaStream_t s) {
+int launch_chain(float* stack, float* dog, float* field, int H, int W,
+                 ChainArgs& c, cudaStream_t s) {
     const ChainBands b = chain_bands(H);
     const int smem = 4 * chain_smem_floats(b.rows, W, P);
     if (smem > kChainSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -456,7 +524,7 @@ int launch_chain(float* stack, float* dog, int H, int W, ChainArgs& c,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     const cudaError_t e =
-        cudaLaunchKernelEx(&cfg, blur_chain<P>, stack, dog, H, W, c);
+        cudaLaunchKernelEx(&cfg, blur_chain<P>, stack, dog, field, H, W, c);
     if (e != cudaSuccess) return static_cast<int>(e);
     return psk::status();
 }
@@ -486,13 +554,15 @@ PSK_API int psk_sep_blur(const float* src, float* out, float* dog, int H,
     }
 }
 
-// stack: (levels, H, W) with level 0 written; dog: (levels - 1, H, W).
-// Level l >= 1 = the blur of level l - 1 by taps[l] (spans[l] taps, both
-// directions), dog[l - 1] = level l - level l-1.  taps: levels x 32 host
-// floats, spans: levels host ints (index 0 unused).
-PSK_API int psk_blur_chain(float* stack, float* dog, int levels, int H,
-                           int W, const float* taps, const int* spans,
-                           void* stream) {
+// stack: (levels, H, W) with level 0 written; dog: (levels - 1, H, W);
+// field (may be null): (2 levels, H, W).  Level l >= 1 = the blur of level
+// l - 1 by taps[l] (spans[l] taps, both directions), dog[l - 1] = level l
+// - level l-1, field[2l] and field[2l + 1] = K2's mag and theta of level
+// l.  taps: levels x 32 host floats, spans: levels host ints (index 0
+// unused).
+PSK_API int psk_blur_chain(float* stack, float* dog, float* field,
+                           int levels, int H, int W, const float* taps,
+                           const int* spans, void* stream) {
     if (levels < 2 || levels > kMaxLevels)
         return static_cast<int>(cudaErrorInvalidValue);
     if (H < 1 || W < 1) return 0;
@@ -508,10 +578,10 @@ PSK_API int psk_blur_chain(float* stack, float* dog, int levels, int H,
     }
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (halo_class(widest)) {
-        case 4: return launch_chain<4>(stack, dog, H, W, c, s);
-        case 8: return launch_chain<8>(stack, dog, H, W, c, s);
-        case 16: return launch_chain<16>(stack, dog, H, W, c, s);
-        default: return launch_chain<32>(stack, dog, H, W, c, s);
+        case 4: return launch_chain<4>(stack, dog, field, H, W, c, s);
+        case 8: return launch_chain<8>(stack, dog, field, H, W, c, s);
+        case 16: return launch_chain<16>(stack, dog, field, H, W, c, s);
+        default: return launch_chain<32>(stack, dog, field, H, W, c, s);
     }
 }
 

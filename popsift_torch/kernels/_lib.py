@@ -38,7 +38,7 @@ KERNELS = ("sep_blur", "grad_field", "detect", "refine", "ori_hist",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "psk_sep_blur": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _F, _P],
-    "psk_blur_chain": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "psk_blur_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "psk_grad_field": [_P, _P, _I, _I, _I, _P],
     "psk_detect": [_P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     "psk_refine": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],

@@ -8,7 +8,10 @@ clamp addressing, optionally with the DoG layer ``out - img``.
 :func:`blur_chain` computes every level of a small octave from its level
 0 in one launch: one cluster of blocks, each keeping a band of rows of the
 level and of its horizontal pass in its shared memory (:func:`chain_bands`)
-and copying its halo rows of that pass from its neighbours.
+and copying its halo rows of that pass from its neighbours.  With
+``emit_field`` the same launch then writes the octave's gradient field
+from the stack it wrote, bit-equal to K2's
+(:mod:`popsift_torch.kernels.grad`) on the same stack.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from . import _lib
+from .grad import grad_field_plain
 
 MAX_SPAN = 32
 MAX_LEVELS = 16          # csrc/blur.cu kMaxLevels
@@ -185,21 +189,26 @@ def _chain_outputs(lvl0: torch.Tensor, levels: int):
     return stack, dog
 
 
-def blur_chain_plain(lvl0: torch.Tensor, filters, spans):
+def blur_chain_plain(lvl0: torch.Tensor, filters, spans,
+                     emit_field: bool = False):
     """Levels 1..L-1 from level 0, each the separable blur of the level
     before by ``filters[l]`` (``spans[l]`` taps, both directions), with
     the L-1 DoG layers: K1's plain version per level.  Index 0 of
     ``filters`` and ``spans`` is unused.  Returns (stack (L, H, W),
-    dog (L-1, H, W))."""
+    dog (L-1, H, W)), and with ``emit_field`` K2's plain field of the
+    stack (2L, H, W) as well."""
     stack, dog = _chain_outputs(lvl0, len(spans))
     for lvl in range(1, len(spans)):
         s = int(spans[lvl])
         stack[lvl], dog[lvl - 1] = sep_blur_plain(
             stack[lvl - 1], filters[lvl], s, filters[lvl], s, with_dog=True)
+    if emit_field:
+        return stack, dog, grad_field_plain(stack)
     return stack, dog
 
 
-def blur_chain(lvl0: torch.Tensor, filters, spans):
+def blur_chain(lvl0: torch.Tensor, filters, spans,
+               emit_field: bool = False):
     """:func:`blur_chain_plain` in one launch of K1's chain entry, for an
     octave that :func:`chain_fits`."""
     if lvl0.dim() != 2 or lvl0.dtype != torch.float32:
@@ -208,7 +217,7 @@ def blur_chain(lvl0: torch.Tensor, filters, spans):
     if not 2 <= L <= MAX_LEVELS:
         raise ValueError(f"blur_chain takes 2..{MAX_LEVELS} levels ({L})")
     if lvl0.device.type == "cpu":
-        return blur_chain_plain(lvl0, filters, spans)
+        return blur_chain_plain(lvl0, filters, spans, emit_field)
     spans = tuple(int(s) for s in spans)
     _check_spans("blur_chain", *spans[1:])
     h, w = lvl0.shape
@@ -217,10 +226,14 @@ def blur_chain(lvl0: torch.Tensor, filters, spans):
                          f"pixels whose bands fit {CHAIN_SMEM} bytes "
                          f"({h}x{w}, spans {spans})")
     stack, dog = _chain_outputs(lvl0, L)
-    dev = _lib.check_cuda("blur_chain", stack, dog)
+    field = (torch.empty((2 * L, h, w), dtype=torch.float32,
+                         device=lvl0.device) if emit_field else None)
+    dev = _lib.check_cuda("blur_chain", stack, dog,
+                          *([field] if emit_field else []))
     raw = b"".join(np.asarray(filters[lvl], np.float32)[:spans[lvl]]
                    .tobytes() for lvl in range(1, L))
     taps, host_spans = _host_chain(raw, (1,) + spans[1:])
-    _lib.call("blur_chain", dev, stack.data_ptr(), dog.data_ptr(), L, h, w,
-              taps, host_spans)
-    return stack, dog
+    _lib.call("blur_chain", dev, stack.data_ptr(), dog.data_ptr(),
+              field.data_ptr() if emit_field else None, L, h, w, taps,
+              host_spans)
+    return (stack, dog, field) if emit_field else (stack, dog)

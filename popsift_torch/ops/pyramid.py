@@ -7,10 +7,11 @@ horizontally, x255, and ``inc[0]`` vertically (K1); the level 0 of a later
 octave picks every second pixel of level ``levels`` of the octave before.
 Every further level blurs the previous one with ``inc[l]``: on octaves that
 ``octave_chain_ok`` admits, K7 computes all of them with the DoG and the
-field in one launch; the others run K1, then K2.  K1 takes an octave that
+field in one launch; the others run K1.  K1 takes an octave that
 ``chain_fits`` (at most 2^16 pixels in bands that fit the blocks' shared
-memory) in one launch of its chain entry, and a larger one level by level
-(each launch also writes its DoG layer).
+memory) in one launch of its chain entry, which also writes the field,
+and a larger one level by level (each launch also writes its DoG layer),
+followed by K2 for the field.
 """
 
 from __future__ import annotations
@@ -172,8 +173,9 @@ def octave_outputs(src: torch.Tensor, octave: int, dims, levels: int,
     None on a chain octave when ``full_stack`` is False (the loop
     descriptors never read it), and ``down`` is level L-3, the next
     octave's source.  A chain octave always has K7's field; a per-level
-    octave has K2's only with ``need_field`` (nothing reads it on the
-    stack-kernel path), and None otherwise."""
+    octave has one only with ``need_field`` (nothing reads it on the
+    stack-kernel path), and None otherwise: from K1's chain entry where
+    the octave ``chain_fits``, else from K2."""
     w, h = dims[octave]
     L = levels + 3
     lvl0 = octave_level0(src, octave, dims, gauss, sift_mode,
@@ -186,6 +188,9 @@ def octave_outputs(src: torch.Tensor, octave: int, dims, levels: int,
         if full_stack:
             return stack, stack[L - PREV_LEVEL], dog, field
         return None, stack[0], dog, field
-    stack, dog = per_level_chain(lvl0, levels, gauss)
-    field = grad_field(stack) if need_field else None
+    if need_field and chain_fits(h, w, spans):
+        stack, dog, field = blur_chain(lvl0, filters, spans, emit_field=True)
+    else:
+        stack, dog = per_level_chain(lvl0, levels, gauss)
+        field = grad_field(stack) if need_field else None
     return stack, stack[L - PREV_LEVEL], dog, field

@@ -9,10 +9,13 @@ vertical pass over windows of 8 + 2P rows, the DoG from the source
 buffer), and the chain entry's cluster (each block's band of rows of the
 level and of its horizontal pass kept in shared memory, the vertical
 window's halo rows read from the other blocks' bands once the horizontal
-pass is whole).  Window
+pass is whole; then the field, each block's band rows at every level read
+from the stack with the image rows above and below).  Window
 values a thread does not load are NaN in the emulation, so a read outside
 what the kernel loads would show.  Bit comparisons run on one thread
-(PyTorch's CPU kernels round each operation; see PERF.md).
+(PyTorch's CPU kernels round each operation; see PERF.md).  The chain
+entry's field is held bit for bit to K2's plain version of the emulated
+stack.
 
 ``blur_chain_plain`` is also held to the JAX package's per-level pyramid
 at octaves that ``octave_chain_ok`` refuses, within
@@ -37,7 +40,9 @@ from popsift_tpu.ops import pyramid as jpyr  # noqa: E402
 from popsift_torch import config as tcfg  # noqa: E402
 from popsift_torch import gauss as tgauss  # noqa: E402
 from popsift_torch.kernels import blur as tblur  # noqa: E402
+from popsift_torch.kernels.grad import grad_field_plain  # noqa: E402
 from popsift_torch.kernels.octave import octave_chain_ok  # noqa: E402
+from popsift_torch.ops import gradients as tgrad  # noqa: E402
 from popsift_torch.ops import pyramid as tpyr  # noqa: E402
 
 PLANES = [(8, 15), (33, 70), (67, 129), (135, 240)]
@@ -187,9 +192,45 @@ def emulate_chain_level(cur, hb, R, H, W, taps, span, nxt, out, dog,
                 written[y0 + i0 + m] += 1
 
 
+def emulate_chain_field(stack, nb, R):
+    """csrc/blur.cu:band_field after the chain's last barrier: each of the
+    nb blocks takes its band's rows at every level of the stack, a warp a
+    row, its lanes along x in chunks of 32 KC columns (KC 1, 2 or 4 by the
+    row's width); a lane loads at its column clamped to the row, and from
+    the image rows above and below, clamped to the image, and stores only
+    inside the row.  Returns the central differences (dx, dy), each
+    (L, H, W); every pixel must be written once."""
+    L, H, W = stack.shape
+    KC = 1 if W <= 32 else 2 if W <= 64 else 4
+    dx = torch.full((L, H, W), NAN)
+    dy = torch.full((L, H, W), NAN)
+    written = torch.zeros((L, H, W), dtype=torch.int32)
+    for b in range(nb):
+        y0 = b * R
+        rb = max(0, min(R, H - y0))
+        for r in range(L * rb):
+            lvl, gy = r // rb, y0 + r % rb
+            s = stack[lvl]
+            row, up, dn = s[gy], s[max(gy - 1, 0)], s[min(gy + 1, H - 1)]
+            for x0 in range(0, W, 32 * KC):
+                x = x0 + torch.arange(32 * KC)
+                xc = x.clamp(max=W - 1)
+                keep = x < W
+                d_x = (row[(xc + 1).clamp(max=W - 1)]
+                       - row[(xc - 1).clamp(min=0)])
+                d_y = dn[xc] - up[xc]
+                dx[lvl, gy, x[keep]] = d_x[keep]
+                dy[lvl, gy, x[keep]] = d_y[keep]
+                written[lvl, gy, x[keep]] += 1
+    assert bool((written == 1).all()), "a field pixel written other than once"
+    return dx, dy
+
+
 def emulate_blur_chain(lvl0, filters, spans):
     """csrc/blur.cu:blur_chain: one cluster whose blocks each keep a band
-    of rows of the level and of its horizontal pass in shared memory."""
+    of rows of the level and of its horizontal pass in shared memory, and
+    then the field of every level from the stack.  Returns (stack, dog,
+    field)."""
     H, W = lvl0.shape
     L = len(spans)
     nb, R = tblur.chain_bands(H)
@@ -208,7 +249,13 @@ def emulate_blur_chain(lvl0, filters, spans):
                             stack[lvl], dog[lvl - 1], written)
         assert bool((written == 1).all()), f"level {lvl} not covered once"
         cur = nxt
-    return stack, dog
+    dx, dy = emulate_chain_field(stack, nb, R)
+    # the elementwise rest of K2's expressions, on tensors of the plain
+    # version's shape (PyTorch's CPU atan2 may round the last bit by how
+    # a call splits into vector and scalar parts)
+    field = tgrad.interleave_field(torch.sqrt(dx * dx + dy * dy),
+                                   torch.atan2(dy, dx))
+    return stack, dog, field
 
 
 @pytest.mark.parametrize("span", [1, 2, 14, 32])
@@ -236,9 +283,10 @@ def test_chain_schedule_bit_equal_to_plain(spans, h, w):
     rng = np.random.default_rng(h + w)
     lvl0 = torch.as_tensor(rng.random((h, w)).astype(np.float32) * 255)
     filters = [None] + [_taps(s, lvl) for lvl, s in enumerate(spans)][1:]
-    stack, dog = emulate_blur_chain(lvl0, filters, spans)
+    stack, dog, field = emulate_blur_chain(lvl0, filters, spans)
     ps, pd = tblur.blur_chain_plain(lvl0, filters, spans)
     assert torch.equal(stack, ps) and torch.equal(dog, pd)
+    assert torch.equal(field, grad_field_plain(ps))
     # on a CPU tensor the wrapper is its plain version
     ks, kd = tblur.blur_chain(lvl0, filters, spans)
     assert torch.equal(ks, ps) and torch.equal(kd, pd)
@@ -247,6 +295,48 @@ def test_chain_schedule_bit_equal_to_plain(spans, h, w):
         o, d = tblur.sep_blur_plain(ps[lvl - 1], filters[lvl], spans[lvl],
                                     filters[lvl], spans[lvl], with_dog=True)
         assert torch.equal(o, ps[lvl]) and torch.equal(d, pd[lvl - 1])
+
+
+# heights whose clusters hold 1, 1, 2, 4, 8 and 16 blocks; H = 9's last
+# band is empty, H = 17's last three hold 2 rows, none and none, H =
+# 135's last none
+FIELD_PLANES = [(1, 7), (3, 16), (6, 20), (9, 15), (17, 33), (135, 240)]
+
+
+@pytest.mark.parametrize("h,w", FIELD_PLANES)
+def test_chain_field_schedule_bit_equal_to_k2(h, w):
+    """The chain entry's field, read band by band with one neighbour row
+    each side (from the neighbouring band at a band's first and last
+    rows), is K2's plain field of the stack bit for bit; the wrapper with
+    ``emit_field`` on a CPU tensor is the plain chain and that field."""
+    blocks, rows = tblur.chain_bands(h)
+    bands = [max(0, min(rows, h - b * rows)) for b in range(blocks)]
+    assert sum(bands) == h
+    spans = CHAIN_SPANS[0]
+    rng = np.random.default_rng(h * w)
+    lvl0 = torch.as_tensor(rng.random((h, w)).astype(np.float32) * 255)
+    filters = [None] + [_taps(s, lvl) for lvl, s in enumerate(spans)][1:]
+    stack, dog, field = emulate_blur_chain(lvl0, filters, spans)
+    ps, pd, pf = tblur.blur_chain_plain(lvl0, filters, spans,
+                                        emit_field=True)
+    assert torch.equal(stack, ps) and torch.equal(dog, pd)
+    assert pf.shape == (2 * len(spans), h, w)
+    assert torch.equal(field, pf) and torch.equal(pf, grad_field_plain(ps))
+    ks, kd, kf = tblur.blur_chain(lvl0, filters, spans, emit_field=True)
+    assert torch.equal(ks, ps) and torch.equal(kd, pd)
+    assert torch.equal(kf, pf)
+
+
+def test_chain_field_planes_cover_every_band_shape():
+    got = {h: tblur.chain_bands(h) for h, _ in FIELD_PLANES}
+    assert [b for b, _ in got.values()] == [1, 1, 2, 4, 8, 16]
+
+    def bands(h):
+        blocks, rows = got[h]
+        return [max(0, min(rows, h - b * rows)) for b in range(blocks)]
+    assert bands(9) == [3, 3, 3, 0]
+    assert bands(17)[-3:] == [2, 0, 0]
+    assert bands(135)[-1] == 0
 
 
 def test_chain_entry_limits():

@@ -18,6 +18,9 @@ the kernels that take each pixel's gradient from the blurred stack.
 * End to end on ``textured_image``, the stack path's features are the
   default path's, bit for bit, and its per-level octaves compute no
   gradient field.
+* An octave that K1's chain entry takes gets its field from that entry
+  (K2's plain field of its stack, bit for bit), never from K2, and on
+  the stack path the entry is asked for none.
 """
 
 import contextlib
@@ -34,6 +37,8 @@ from popsift_tpu.kernels import binwin as jbinwin  # noqa: E402
 
 import popsift_torch  # noqa: E402
 from popsift_torch import extract as text  # noqa: E402
+from popsift_torch.gauss import build_gauss_info  # noqa: E402
+from popsift_torch.kernels import blur as tblur  # noqa: E402
 from popsift_torch.kernels import binwin  # noqa: E402
 from popsift_torch.kernels.grad import grad_field_plain  # noqa: E402
 from popsift_torch.ops import descriptors as tdesc  # noqa: E402
@@ -292,3 +297,56 @@ def test_stack_path_takes_every_octave(textured_image, monkeypatch):
     text.extract_features(textured_image, popsift_torch.Config(),
                           device="cpu")
     assert calls and all(s[2] < 384 for s in calls)
+
+
+def _no_k2(*args):
+    raise AssertionError("K2 ran on an octave that K1's chain entry takes")
+
+
+@pytest.fixture
+def chain_octave(monkeypatch):
+    """Octave 0 of a 60x100 image (120x200 after the upscale): too small
+    for K7, taken by K1's chain entry.  The entry's calls are recorded by
+    their ``emit_field``, and K2 may not run."""
+    rng = np.random.default_rng(9)
+    img = torch.as_tensor(rng.random((60, 100)).astype(np.float32))
+    cfg = popsift_torch.Config()
+    plan = text.make_plan(cfg, 100, 60)
+    gauss = build_gauss_info(cfg)
+    w, h = plan.dims[0]
+    _, spans = tpyr.chain_filters(gauss, plan.levels)
+    assert tblur.chain_fits(h, w, spans)
+    assert not tpyr.chain_eligible(h, w, spans)
+    calls = []
+    real = tpyr.blur_chain
+
+    def spy(*args, emit_field=False):
+        calls.append(emit_field)
+        return real(*args, emit_field=emit_field)
+    monkeypatch.setattr(tpyr, "blur_chain", spy)
+    monkeypatch.setattr(tpyr, "grad_field", _no_k2)
+
+    def outputs(need_field):
+        with one_thread():
+            return tpyr.octave_outputs(img, 0, plan.dims, plan.levels, gauss,
+                                       plan.sift_mode, plan.upscale_factor,
+                                       False, need_field=need_field)
+    return outputs, calls
+
+
+def test_chain_octave_field_comes_from_the_chain_entry(chain_octave):
+    outputs, calls = chain_octave
+    stack, down, dog, field = outputs(True)
+    assert calls == [True]
+    assert stack.shape == (6, 120, 200) and torch.equal(down, stack[3])
+    with one_thread():
+        assert torch.equal(field, grad_field_plain(stack))
+    assert dog.shape == (5, 120, 200)
+
+
+def test_stack_path_asks_the_chain_entry_for_no_field(chain_octave):
+    outputs, calls = chain_octave
+    stack, _, dog, field = outputs(False)
+    assert calls == [False] and field is None
+    ref_stack, _, ref_dog, _ = outputs(True)
+    assert torch.equal(stack, ref_stack) and torch.equal(dog, ref_dog)

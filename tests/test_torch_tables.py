@@ -231,6 +231,8 @@ def test_wrappers_take_the_kernel_path_off_the_cpu(monkeypatch):
     calls = [
         lambda: blur.sep_blur(meta(16, 32), taps, 4, with_dog=True),
         lambda: blur.blur_chain(meta(16, 32), [taps] * 4, (1, 4, 4, 4)),
+        lambda: blur.blur_chain(meta(16, 32), [taps] * 4, (1, 4, 4, 4),
+                                emit_field=True),
         lambda: grad.grad_field(meta(6, 16, 32)),
         lambda: detect.detect(meta(5, 16, 32), tcfg.SiftMode.POPSIFT, 2.0),
         lambda: refine.refine(meta(5, 16, 32), *(meta(3, dtype=torch.int32)

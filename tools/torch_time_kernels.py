@@ -6,17 +6,23 @@ two trees on the same card.
 ``--root`` is the checkout whose popsift_torch is timed (this repository
 by default); run the tool in turns for two checkouts (A, B, B, A) in one
 run on the card, the parent unpacked with ``git archive`` into
-``build/popsift_torch/``.  ``--kernels`` picks from K1, K2, K3, K4, K5,
-K10, K7, K6, K11, K9, K12, K13 and ops (all by default).  It uses only functions that
-every version of the port since K1's chain entry (``blur_chain``) has, on
-chip_smoke.py's seed-0 1080p scene:
+``build/popsift_torch/``.  ``--kernels`` picks from K1, K2, K1K2, K3, K4,
+K5, K10, K7, K6, K11, K9, K12, K13 and ops (all by default).  It uses only
+functions that every version of the port since K1's chain entry
+(``blur_chain``) has, on chip_smoke.py's seed-0 1080p scene:
 
 - K1: octave 0's level 0 (x255), the span-14 level with its DoG at
   octave 0, and levels 1..L-1 of each octave that K7 does not take
   (``ops/pyramid.py:per_level_chain``, the form the path runs there: K1
   per level, or its chain entry);
 - K2: the gradient field of each octave that K7 does not take (4-8 at
-  1080p), where the default path launches it;
+  1080p);
+- K1K2: on those octaves, levels, DoG and field as the default path
+  computes them: K1's chain entry with ``emit_field=True`` where the tree
+  has it, else the chain entry followed by K2; per octave and summed,
+  with a digest of the three outputs (equal digests: bit-identical), by
+  events (the median and the least of 100 calls), device time and host
+  time (``k1k2_times``);
 - K3: every octave;
 - K4: refinement and compaction at the busiest octave, as
   ``extract.octave_keypoints`` less detection and the candidates'
@@ -38,7 +44,8 @@ chip_smoke.py's seed-0 1080p scene:
   bit-identical features).
 
 Each gets two times of one call: between CUDA events (chip_smoke.cuda_ms,
-the median of 20 calls, 50 for K6/K11), and on the device: the library
+the median of 20 calls, 50 for K6/K11 and the descriptor steps), and on
+the device: the library
 kernels' records in torch.profiler over the same number of calls,
 divided by the calls (every record a call makes counts, however many
 kernels the tree launches for it; a profile whose record count is not a
@@ -51,6 +58,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import importlib.util
+import inspect
 import sys
 import time
 from pathlib import Path
@@ -58,8 +66,8 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parents[1]
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K10", "K7", "K6", "K11", "K9",
-           "K12", "K13", "ops")
+KERNELS = ("K1", "K2", "K1K2", "K3", "K4", "K5", "K10", "K7", "K6", "K11",
+           "K9", "K12", "K13", "ops")
 
 
 def library_spans(torch, fn, calls: int) -> list[float]:
@@ -93,6 +101,33 @@ def device_ms(torch, fn, reps: int) -> tuple[float, int]:
             return sum(spans) / reps / 1e3, per_call
     raise AssertionError(f"the profiler recorded {len(spans)} records for "
                          f"{reps} calls of {per_call}, three times")
+
+
+def k1k2_times(torch, fn, reps: int = 100, bursts: int = 5):
+    """(events median, events least, device, host) ms of one call: the
+    median and the least of ``reps`` calls between CUDA events, the mean
+    device time, and the least over ``bursts`` bursts of ``reps`` calls
+    enqueued back to back (one synchronisation a burst) of the wall time
+    a call, which is the wrappers' host time where the card keeps up."""
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    dms, _ = device_ms(torch, fn, reps)
+    host = []
+    for _ in range(bursts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) / reps * 1e3)
+    return np.array([np.median(times), min(times), dms, min(host)])
 
 
 def main() -> int:
@@ -177,6 +212,33 @@ def main() -> int:
             bound = 12 * st.numel() / cs.HBM_BYTES_PER_S * 1e3
             report(f"K2 octave {o} {tuple(st.shape)} (bound {bound:.7f} ms, "
                    f"bytes)", lambda: grad.grad_field(st))
+    if "K1K2" in want:
+        folded = "emit_field" in inspect.signature(blur.blur_chain).parameters
+        form = ("blur_chain(emit_field=True)" if folded
+                else "blur_chain, then grad_field")
+
+        def with_field(lvl):
+            if folded:
+                return blur.blur_chain(lvl, filters, spans, emit_field=True)
+            stack, dog = blur.blur_chain(lvl, filters, spans)
+            return stack, dog, grad.grad_field(stack)
+        total = np.zeros(4)
+        for o, (st, _) in enumerate(octaves):
+            if ops_pyr.chain_eligible(st.shape[1], st.shape[2], spans):
+                continue
+            lvl = st[0].contiguous()
+            h = hashlib.sha256()
+            for t in with_field(lvl):
+                h.update(t.cpu().numpy().tobytes())
+            times = k1k2_times(torch, lambda: with_field(lvl))
+            print(f"K1K2 octave {o} {tuple(st.shape)}, {form}, sha256 "
+                  f"{h.hexdigest()[:16]}: events median {times[0]:.6f} ms, "
+                  f"least {times[1]:.6f}; device {times[2]:.6f} ms; host "
+                  f"{times[3]:.6f} ms a call", flush=True)
+            total += times
+        print(f"K1K2 summed over those octaves: events median "
+              f"{total[0]:.6f} ms, least {total[1]:.6f}; device "
+              f"{total[2]:.6f} ms; host {total[3]:.6f} ms", flush=True)
     if "K3" in want:
         for o, (_, dg) in enumerate(octaves):
             report(f"K3 octave {o} {tuple(dg.shape)}",
