@@ -73,9 +73,28 @@ JAX nor popsift_tpu.  In order it:
    descriptor rows whose footprint exceeds the staging capacity);
 7. holds the card's features of a small scene against the plain PyTorch
    versions run on the CPU, for all five paths;
-8. prints the kernel table as one JSON line (the launches of
+8. drives matching mode, PopSift(Config(), mode=MATCHING, workers=2)
+   .enqueue(...).get_dev() and FeaturesDev.match, on the four scenes,
+   their 90-degree rotations and the repository's two real 640x480 pairs
+   (china, flower) with the launch counts reset just before (the default
+   path's kernels launched, gather_windows and grad_field not): each
+   frame's FeaturesDev equals its ExtractingMode features (phase 3's for
+   the scenes), its descriptors a CUDA tensor bit for bit; each scene
+   matched with itself gives every row itself; each pair's matches equal
+   a float64 matcher's on the CPU except at near ties (at most 0.1% of
+   the rows), with distances within rtol 1e-4 (and float32's rounding
+   bound near 0); workers=1 and workers=2
+   give bit-identical FeaturesDevs; the matcher gives the same results
+   bit for bit with TF32 turned on by the caller (it holds TF32 off for
+   its product).  It prints the accepted matches per pair, the share of
+   a rotated pair's matches within 2 px of the rotation, the matcher's
+   time on a 1080p pair, and the wall of a pair (two enqueues, two
+   get_devs and the match) for one and two workers;
+9. prints the kernel table as one JSON line (the launches of
    gather_windows and grad_field are their counts summed over the five
-   paths, each required to be 0) and, last, the device line.
+   paths, each required to be 0; each row also holds its launches in
+   matching mode) and, last, the device line, after checking that no JAX
+   module was imported.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -1599,6 +1618,348 @@ def stack_kernels_on():
         else:
             os.environ[STACK_SWITCH] = old
 
+MATCH_PAIRS_REAL = (("china.pgm", "china_l.pgm"),
+                    ("flower.pgm", "flower_r.pgm"))
+NEAR_TIE = 1e-5
+MOST_NEAR_TIE_MISMATCHES = 0.001
+
+
+def read_pgm(path: Path) -> np.ndarray:
+    """An 8-bit binary PGM (P5) as an (H, W) uint8 array."""
+    data = path.read_bytes()
+    fields, pos = [], 0
+    while len(fields) < 4:
+        while data[pos:pos + 1].isspace():
+            pos += 1
+        end = pos
+        while not data[end:end + 1].isspace():
+            end += 1
+        fields.append(data[pos:end])
+        pos = end
+    require(fields[0] == b"P5" and int(fields[3]) == 255,
+            f"{path} is not an 8-bit P5 PGM")
+    w, h = int(fields[1]), int(fields[2])
+    return np.frombuffer(data, np.uint8, w * h, pos + 1).reshape(h, w)
+
+
+def bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def dev_equal(a, b) -> bool:
+    """Two FeaturesDev, bit for bit."""
+    fa, fb = a.get_features(), b.get_features()
+    return (all(bits_equal(fa[k], fb[k]) for k in fa)
+            and bits_equal(a.get_reverse_map(), b.get_reverse_map())
+            and bits_equal(a.get_descriptors().cpu().numpy(),
+                           b.get_descriptors().cpu().numpy()))
+
+
+def require_dev_equals_host(dev, host, label: str) -> None:
+    """Matching mode's features of a frame against ExtractingMode's."""
+    s, f = host.soa(), dev.get_features()
+    for k in ("xpos", "ypos", "sigma", "num_ori"):
+        require(bits_equal(f[k], s[k]),
+                f"{label}: FeaturesDev {k} differs from FeaturesHost's")
+    desc = dev.get_descriptors()
+    require(desc.device.type == "cuda" and desc.dtype.is_floating_point,
+            f"{label}: descriptors on {desc.device}, {desc.dtype}")
+    require(bits_equal(desc.cpu().numpy(), host.get_descriptors()),
+            f"{label}: device descriptors differ from the host's")
+    num = s["num_ori"]
+    require(bits_equal(dev.get_reverse_map(),
+                       np.repeat(np.arange(num.shape[0], dtype=np.int64),
+                                 num)[:desc.shape[0]]),
+            f"{label}: reverse map")
+
+
+def self_match_copies(dev, label: str) -> int:
+    """A frame matched with itself gives every row itself, accepted, but
+    rows whose descriptor has an exact copy in the frame (two extrema
+    refined to one point): those match the first copy and are rejected.
+    Returns the number of such rows."""
+    best, _, accept, d1, d2 = dev.match(dev)
+    desc = dev.get_descriptors().cpu().numpy()
+    m = desc.shape[0]
+    _, first, inverse = np.unique(desc, axis=0, return_index=True,
+                                  return_inverse=True)
+    first = first[inverse.reshape(-1)]
+    copied = np.bincount(first, minlength=m)[first] > 1
+    require(np.array_equal(best[~copied], np.arange(m)[~copied])
+            and bool(accept[~copied].all()),
+            f"{label}: a self-match row did not match itself")
+    require(np.array_equal(best[copied], first[copied])
+            and not accept[copied].any()
+            and np.array_equal(d1[copied], d2[copied]),
+            f"{label}: rows with a copy")
+    return int(copied.sum())
+
+
+def plain_match64(l: np.ndarray, r: np.ndarray, ratio: float = 0.8):
+    """The plain matcher on the CPU in float64: best, second and third
+    nearest distances and indices, and the ratio test."""
+    l, r = l.astype(np.float64), r.astype(np.float64)
+    d = np.maximum((l * l).sum(1)[:, None] + (r * r).sum(1)[None, :]
+                   - 2.0 * (l @ r.T), 0.0)
+    rows = np.arange(d.shape[0])
+    order = []
+    for _ in range(min(3, d.shape[1])):
+        i = d.argmin(axis=1)
+        order.append((i, d[rows, i].copy()))
+        d[rows, i] = np.inf
+    (b, db), (s2, ds) = order[0], order[1]
+    dt = order[2][1] if len(order) > 2 else np.full_like(db, np.inf)
+    return b, s2, db / ds < ratio, db, ds, dt
+
+
+def compare_with_plain(card, l, r, label: str, ratio: float = 0.8) -> dict:
+    """The card's match of descriptors ``l`` against ``r`` (numpy) with
+    the float64 matcher's.  A row may differ only at a near tie: its two
+    nearest, or second and third nearest, distances within NEAR_TIE of
+    each other, or its distance ratio within NEAR_TIE of ``ratio``; at
+    most MOST_NEAR_TIE_MISMATCHES of the rows may.  The best and second
+    distances agree within rtol 1e-4 and, for distances near 0, within
+    the rounding bound of float32's |l|^2 + |r|^2 - 2 l.r: D u (|l|^2 +
+    |r|^2) with D = 128 terms and u = 2^-24, about 1.5e-5 for unit rows."""
+    best, second, accept, d1, d2 = card
+    pb, ps, pa, pd1, pd2, pd3 = plain_match64(l, r, ratio)
+    differ = (best != pb) | (second != ps) | (accept != pa)
+    near = ((pd2 - pd1 <= NEAR_TIE) | (pd3 - pd2 <= NEAR_TIE)
+            | (np.abs(pd1 / np.maximum(pd2, 1e-300) - ratio) <= NEAR_TIE))
+    n = len(best)
+    norms = float((l.astype(np.float64) ** 2).sum(1).max()
+                  + (r.astype(np.float64) ** 2).sum(1).max())
+    atol = l.shape[1] * 2.0 ** -24 * norms
+    err = max(float(np.abs(d1 - pd1).max()), float(np.abs(d2 - pd2).max()))
+    over = max(float((np.abs(d1 - pd1) - 1e-4 * pd1).max()),
+               float((np.abs(d2 - pd2) - 1e-4 * pd2).max()))
+    print(f"  {label}: {n} rows, {int(accept.sum())} accepted; rows "
+          f"differing from the float64 matcher {int(differ.sum())}, all at "
+          f"near ties: {bool(near[differ].all())} (near-tie rows "
+          f"{int(near.sum())}); distances within {err:.3g} (beyond rtol "
+          f"1e-4 by at most {max(over, 0.0):.3g}, bound {atol:.3g})",
+          flush=True)
+    require(bool(near[differ].all()),
+            f"{label}: the card's matches differ from the float64 "
+            f"matcher's away from a near tie at rows "
+            f"{np.flatnonzero(differ & ~near)[:10].tolist()}")
+    require(int(differ.sum()) <= MOST_NEAR_TIE_MISMATCHES * n,
+            f"{label}: {int(differ.sum())} rows differ at near ties")
+    require(np.allclose(d1, pd1, rtol=1e-4, atol=atol)
+            and np.allclose(d2, pd2, rtol=1e-4, atol=atol),
+            f"{label}: distances differ from the float64 matcher's")
+    return dict(rows=n, accepted=int(accept.sum()),
+                differing_at_near_ties=int(differ.sum()),
+                near_tie_rows=int(near.sum()), max_distance_error=err)
+
+
+def rotation_share(left, right, best, accept, width: int) -> float:
+    """Share of the accepted matches of a frame (width ``width``) with its
+    np.rot90 view that land within 2 px of the rotated position: (x, y)
+    goes to (y, width - 1 - x)."""
+    fl, fr = left.get_features(), right.get_features()
+    lrev, rrev = left.get_reverse_map(), right.get_reverse_map()
+    i = np.flatnonzero(accept)
+    if i.size == 0:
+        return 0.0
+    lx, ly = fl["xpos"][lrev[i]], fl["ypos"][lrev[i]]
+    rx, ry = fr["xpos"][rrev[best[i]]], fr["ypos"][rrev[best[i]]]
+    return float((np.hypot(rx - ly, ry - (width - 1 - lx)) <= 2.0).mean())
+
+
+def all_device_ms(torch, fn, reps: int = 20) -> float | None:
+    """Mean device time of one call of ``fn``, every CUDA kernel and copy
+    it runs (torch.profiler, 50 ms idle on each side); None if the
+    profiler recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def check_tf32(torch, l, r) -> dict:
+    """The matcher with TF32 turned on by the caller, both ways PyTorch
+    offers, against the matcher with it off: bit for bit, and the caller's
+    setting still on after the call.  A plain torch.mm with TF32 on shows
+    that TF32 would have changed the product."""
+    from popsift_torch.ops.match import match_brute_force
+    mm = torch.backends.cuda.matmul
+    ieee = [t.cpu().numpy() for t in match_brute_force(l, r)]
+    exact = torch.mm(l, r.t())
+    out = {}
+    for how in ("allow_tf32", "float32_matmul_precision"):
+        if how == "allow_tf32":
+            mm.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision("high")
+        try:
+            moved = float((torch.mm(l, r.t()) - exact).abs().max())
+            got = [t.cpu().numpy() for t in match_brute_force(l, r)]
+            still_on = mm.allow_tf32
+        finally:
+            mm.allow_tf32 = False
+        same = all(bits_equal(a, b) for a, b in zip(got, ieee))
+        print(f"  TF32 on by {how}: a plain torch.mm moves by up to "
+              f"{moved:.3g}; the matcher's results bit-identical to TF32 "
+              f"off: {same}; the caller's TF32 still on after: {still_on}",
+              flush=True)
+        require(moved > 0, f"TF32 by {how} did not change torch.mm")
+        require(same, f"the matcher's results moved with TF32 by {how}")
+        require(still_on, f"the matcher left TF32 by {how} off")
+        out[how] = dict(mm_moved=moved, identical=same)
+    return out
+
+
+def matching_frames(scenes) -> list:
+    """(label, frame, right-hand partner or None) of phase 8."""
+    frames = [(f"scene {i}", s) for i, s in enumerate(scenes)]
+    frames += [(f"scene {i} rot90", np.ascontiguousarray(np.rot90(s)))
+               for i, s in enumerate(scenes)]
+    data = HERE / "tests" / "data" / "scenes"
+    for a, b in MATCH_PAIRS_REAL:
+        frames += [(a, read_pgm(data / a)), (b, read_pgm(data / b))]
+    return frames
+
+
+def run_matching(torch, pt, scenes, loop_feats, smi: str) -> dict:
+    """Phase 8: matching mode on the card."""
+    from popsift_torch import kernels
+    from popsift_torch.ops.match import match_brute_force
+
+    frames = matching_frames(scenes)
+    labels = [lab for lab, _ in frames]
+    by_label = dict(frames)
+    pairs = [(f"scene {i}", f"scene {i} rot90") for i in range(len(scenes))]
+    pairs += list(MATCH_PAIRS_REAL)
+    print(f"phase 8: matching mode, PopSift(Config(), mode=MATCHING, "
+          f"workers=2) on {len(frames)} frames: the four scenes, their "
+          f"90-degree rotations and the real pairs "
+          f"{', '.join('/'.join(p) for p in MATCH_PAIRS_REAL)} ({smi})",
+          flush=True)
+
+    # ExtractingMode features of the frames phase 3 did not extract
+    host = dict(zip(labels[:len(scenes)], loop_feats))
+    with pt.PopSift(pt.Config()) as ps:
+        jobs = [(lab, ps.enqueue(f.shape[1], f.shape[0], f))
+                for lab, f in frames[len(scenes):]]
+        host.update((lab, j.get()) for lab, j in jobs)
+
+    def drive(workers: int) -> dict:
+        with pt.PopSift(pt.Config(), mode=pt.ProcessingMode.MATCHING,
+                        workers=workers) as ps:
+            jobs = [(lab, ps.enqueue(f.shape[1], f.shape[0], f))
+                    for lab, f in frames]
+            return {lab: j.get_dev() for lab, j in jobs}
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    dev = drive(2)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    print(f"  launches: {json.dumps(counts)}", flush=True)
+    for name in LOOP_PATH:
+        require(counts[name] > 0,
+                f"kernel {name} was not launched in matching mode")
+    for name in NOT_ON_ANY_PATH:
+        require(counts[name] == 0,
+                f"kernel {name} was launched in matching mode")
+
+    # (a) each frame's FeaturesDev against its FeaturesHost
+    for lab in labels:
+        require(dev[lab] is not None, f"{lab}: get_dev() gave None")
+        require_dev_equals_host(dev[lab], host[lab], lab)
+    print("  (a) every frame's FeaturesDev equals its ExtractingMode "
+          "features (xpos, ypos, sigma, num_ori bit for bit; descriptors "
+          "a CUDA tensor bit-identical to the host array; reverse map "
+          "repeat(arange(n), num_ori)): "
+          + ", ".join(f"{lab} {dev[lab].get_feature_count()}/"
+                      f"{dev[lab].get_descriptor_count()}"
+                      for lab in labels), flush=True)
+
+    # (b) self-matches
+    copies = [self_match_copies(dev[f"scene {i}"], f"scene {i}")
+              for i in range(len(scenes))]
+    print(f"  (b) each scene matched with itself: every row itself and "
+          f"accepted, but rows with an exact copy in the frame (rejected, "
+          f"matched to the first copy): {copies}", flush=True)
+
+    # (c) each pair against the float64 matcher on the CPU
+    pair_stats = {}
+    for a, b in pairs:
+        l, r = dev[a], dev[b]
+        card = l.match(r)
+        st = compare_with_plain(card, l.get_descriptors().cpu().numpy(),
+                                r.get_descriptors().cpu().numpy(),
+                                f"(c) {a} -> {b}")
+        if b.endswith("rot90"):
+            st["within_2px_of_the_rotation"] = rotation_share(
+                l, r, card[0], card[2], by_label[a].shape[1])
+            print(f"      {100 * st['within_2px_of_the_rotation']:.2f}% of "
+                  f"the accepted matches within 2 px of the rotation",
+                  flush=True)
+        pair_stats[f"{a}->{b}"] = st
+    print(f"  accepted matches per pair ({smi}): "
+          + ", ".join(f"{k} {v['accepted']}" for k, v in pair_stats.items()),
+          flush=True)
+
+    # (d) one worker against two
+    one = drive(1)
+    require(all(dev_equal(one[lab], dev[lab]) for lab in labels),
+            "workers=1 and workers=2 gave different FeaturesDevs")
+    print("  (d) workers=1 and workers=2, all frames enqueued at once: "
+          "bit-identical FeaturesDevs on every frame", flush=True)
+
+    # (e) TF32 turned on by the caller
+    l = dev["scene 0"].get_descriptors()
+    r = dev["scene 0 rot90"].get_descriptors()
+    tf32 = check_tf32(torch, l, r)
+    print("  (e) the matcher holds TF32 off for its product: results "
+          "bit-identical with TF32 on", flush=True)
+
+    # the matcher's time, and the pair wall
+    match_ms = cuda_ms(lambda: match_brute_force(l, r))
+    match_dev = all_device_ms(torch, lambda: match_brute_force(l, r))
+    print(f"  matcher on scene 0 -> scene 0 rot90 ({l.shape[0]} x "
+          f"{r.shape[0]} rows): {match_ms:.6f} ms by events, "
+          f"{fmt_ms(match_dev)} ms on the device (torch.mm and the "
+          f"selection; {smi})", flush=True)
+    a, b = scenes[0], np.ascontiguousarray(np.rot90(scenes[0]))
+    walls = {}
+    for workers in (1, 2):
+        with pt.PopSift(pt.Config(), mode=pt.ProcessingMode.MATCHING,
+                        workers=workers) as ps:
+            ps.enqueue(a.shape[1], a.shape[0], a).get_dev()
+            times = []
+            for _ in range(MAIN_PATH_PASSES):
+                t0 = time.perf_counter()
+                jl = ps.enqueue(a.shape[1], a.shape[0], a)
+                jr = ps.enqueue(b.shape[1], b.shape[0], b)
+                jl.get_dev().match(jr.get_dev())
+                times.append((time.perf_counter() - t0) * 1e3)
+        walls[workers] = dict(median_ms=float(np.median(times)),
+                              passes_ms=times)
+        print(f"  pair wall, workers={workers} (two enqueues, two get_devs "
+              f"and the match, 1080p): {np.median(times):.3f} ms (median of "
+              f"{len(times)}; range {min(times):.3f}-{max(times):.3f}; "
+              f"{smi})", flush=True)
+    return dict(counts=counts, frames={lab: [dev[lab].get_feature_count(),
+                                             dev[lab].get_descriptor_count()]
+                                       for lab in labels},
+                self_match_copies=copies, pairs=pair_stats, tf32=tf32,
+                matcher_ms=match_ms, matcher_device_ms=match_dev,
+                pair_wall=walls)
+
 
 def main() -> int:
     import torch
@@ -1713,8 +2074,18 @@ def main() -> int:
     for mode in ("grid", "iloop"):
         check_against_cpu(torch, pt, mode_config(pt, mode), mode)
 
+    match_stats = run_matching(torch, pt, scenes, loop_feats, smi)
+    for name in table.rows:
+        table.rows[name]["launches_by_path"]["matching"] = \
+            match_stats["counts"][name]
+
+    require(not any(m == "jax" or m.startswith(("jax.", "popsift_tpu"))
+                    for m in sys.modules), "JAX was imported")
+    print("  (f) no JAX module and no popsift_tpu module was imported",
+          flush=True)
     print(json.dumps({f"{p}_path": st for p, st in stats.items()}),
           flush=True)
+    print(json.dumps({"matching": match_stats}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": [table.rows[k] for k in _lib.KERNELS]}),
           flush=True)

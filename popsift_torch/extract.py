@@ -17,7 +17,8 @@ import torch
 from .config import (Config, DescMode, GaussMode, NormMode, ScalingMode,
                      SiftMode, check_supported)
 from .constants import ConstInfo, build_const_info
-from .features import FeaturesHost, assemble_features
+from .features import (FeaturesDev, FeaturesHost, assemble_features,
+                       assemble_features_dev)
 from .gauss import build_gauss_info
 from .kernels.binwin import stack_kernels_enabled
 from .kernels.detect import detect
@@ -166,16 +167,36 @@ def descriptor_rows(plan: ExtractorPlan, o: int, num_ori: torch.Tensor,
     return feat, ang, num_eff.to(torch.int32)
 
 
+def _quantize(desc: torch.Tensor, mode: str, norm_multi: int):
+    """The integer steps of Config.desc_transfer (staged.py:
+    _quantize_descs) as float32, and the float32 size of one step."""
+    bound = 2.0 ** norm_multi
+    levels = 65535.0 if mode == "u16" else 255.0
+    q = torch.round(torch.clamp(desc, 0.0, bound) * (levels / bound))
+    return q, np.float32(bound / levels)
+
+
 def quantize_descs(desc: torch.Tensor, mode: str, norm_multi: int):
     """Rounding of Config.desc_transfer (staged.py:_quantize_descs) and
     back to float32, as the user receives the descriptors."""
     if mode == "f32":
         return desc.cpu().numpy()
-    bound = 2.0 ** norm_multi
-    levels = 65535.0 if mode == "u16" else 255.0
-    q = torch.round(torch.clamp(desc, 0.0, bound) * (levels / bound))
+    q, step = _quantize(desc, mode, norm_multi)
     dt = np.uint16 if mode == "u16" else np.uint8
-    return q.cpu().numpy().astype(dt).astype(np.float32) * (bound / levels)
+    return q.cpu().numpy().astype(dt).astype(np.float32) * step
+
+
+def quantize_descs_dev(desc: torch.Tensor, mode: str,
+                       norm_multi: int) -> torch.Tensor:
+    """:func:`quantize_descs` on the descriptors' device, as the JAX
+    package's steady state dequantises them there (staged.py
+    _dequantize_descs_dev): the same integer steps times the same float32
+    step size, one float32 multiplication each, so the result equals the
+    host array bit for bit."""
+    if mode == "f32":
+        return desc
+    q, step = _quantize(desc, mode, norm_multi)
+    return q * float(step)
 
 
 def dispatch_descriptors(plan: ExtractorPlan, consts: ConstInfo | None,
@@ -206,12 +227,14 @@ def dispatch_descriptors(plan: ExtractorPlan, consts: ConstInfo | None,
 def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
                             desc_transfer: str, field=None,
                             consts: ConstInfo | None = None,
-                            stack_kernels: bool = False) -> dict:
-    """Everything after the pyramid for octave ``o``; host arrays.  With
-    ``stack_kernels``, orientation and loop descriptors read ``stack``
-    (K10, K11); otherwise they read ``field``, computed from ``stack``
-    (K2) unless it is given.  ``consts`` is needed by the NoTile and IGrid
-    modes only."""
+                            stack_kernels: bool = False,
+                            want_dev: bool = False) -> dict:
+    """Everything after the pyramid for octave ``o``; host arrays, but
+    with ``want_dev`` the descriptors (``desc``) stay a float32 tensor on
+    the device.  With ``stack_kernels``, orientation and loop descriptors
+    read ``stack`` (K10, K11); otherwise they read ``field``, computed
+    from ``stack`` (K2) unless it is given.  ``consts`` is needed by the
+    NoTile and IGrid modes only."""
     _, ext = octave_keypoints(plan, o, dog)
     if not stack_kernels and field is None:
         field = grad_field(stack)
@@ -229,15 +252,18 @@ def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
     return dict(x=ext.xpos.cpu().numpy(), y=ext.ypos.cpu().numpy(),
                 sigma=ext.sigma.cpu().numpy(), num_ori=num_eff.cpu().numpy(),
                 orientations=oris.cpu().numpy(),
-                desc=quantize_descs(desc, desc_transfer, plan.norm_multi),
+                desc=(quantize_descs_dev if want_dev else quantize_descs)(
+                    desc, desc_transfer, plan.norm_multi),
                 overflow=ext.overflow)
 
 
-def extract_features(image, config: Config,
-                     device="cuda") -> FeaturesHost:
-    """Extract the features of one (H, W) uint8 or [0,1] float image.
-    :func:`stack_kernels_enabled` is read once, here, and holds for the
-    whole image."""
+def extract_features(image, config: Config, device="cuda",
+                     want_dev: bool = False) -> FeaturesHost | FeaturesDev:
+    """Extract the features of one (H, W) uint8 or [0,1] float image:
+    a :class:`FeaturesHost`, or with ``want_dev`` a :class:`FeaturesDev`
+    whose descriptors stay on ``device`` (MatchingMode), equal to the
+    host descriptors bit for bit.  :func:`stack_kernels_enabled` is read
+    once, here, and holds for the whole image."""
     check_supported(config)
     h, w = np.shape(image)
     plan = make_plan(config, w, h)
@@ -260,7 +286,9 @@ def extract_features(image, config: Config,
             plan.upscale_factor, full_stacks, need_field=not stack_kernels)
         octaves.append(extract_octave_features(
             plan, o, stack, dog, config.desc_transfer, field=field,
-            consts=consts, stack_kernels=stack_kernels))
+            consts=consts, stack_kernels=stack_kernels, want_dev=want_dev))
+    if want_dev:
+        return assemble_features_dev(octaves, plan.upscale_factor, device)
     return assemble_features(octaves, plan.upscale_factor)
 
 

@@ -117,30 +117,63 @@ def test_levels_and_dogs_match(h, w, source):
                                    atol=1e-3, err_msg=f"dog octave {o}")
 
 
+def _keep_field_failure(tmp_path, o, jstack, jfield, field):
+    """Write a failing octave's arrays to ``tmp_path`` and print which side
+    moved: the JAX field computed in the pyramid's program against one
+    recomputed from the returned stack in a jit of its own (the JAX side
+    moved if they differ), and the port's field against both."""
+    again = np.array(jax.jit(lambda s: jgrad.padded_gradient_field(
+        s, 0, 0))(jstack))
+    path = tmp_path / f"field_octave{o}.npz"
+    np.savez(path, jax_stack=jstack, jax_field=jfield, port_field=field,
+             jax_field_recomputed=again)
+
+    def diff(a, b):
+        return (f"max |d| {float(np.abs(a - b).max()):.3g} at "
+                f"{int((a != b).sum())} of {a.size}")
+
+    print(f"octave {o}: arrays kept in {path}\n"
+          f"  JAX in-program field vs JAX recomputed: {diff(jfield, again)}"
+          f"\n  port field vs JAX in-program: {diff(field, jfield)}"
+          f"\n  port field vs JAX recomputed: {diff(field, again)}\n  "
+          + ("the JAX side moved" if not np.array_equal(jfield, again)
+             else "the JAX side is stable; the port's field moved"))
+
+
 @pytest.mark.parametrize("h,w", SIZES)
-def test_field_matches_on_the_same_stack(h, w):
+def test_field_matches_on_the_same_stack(h, w, tmp_path):
+    """On failure the octave's arrays are written to ``tmp_path`` (the
+    test failed now and then in whole runs, with no arrays to show which
+    side moved)."""
     _, plan, jstacks, _, jfields = _jax_pyramid(h, w)
     for o in range(plan.octaves):
         field = grad_field(torch.as_tensor(jstacks[o])).numpy()
         jf = jfields[o]
-        assert field.shape == jf.shape
-        mag, jmag = field[0::2], jf[0::2]
-        np.testing.assert_allclose(mag, jmag, rtol=0, atol=1e-3)
-        strong = jmag > 1e-3
-        dth = np.abs(field[1::2] - jf[1::2])[strong]
-        dth = np.minimum(dth, 2 * np.pi - dth)
-        assert dth.max() <= 1e-5, (o, dth.max())
-        # two CPU computations of the port, bit for bit: on one thread, as
-        # PyTorch's CPU atan2 may round the last bit by the work's split
-        n = torch.get_num_threads()
-        torch.set_num_threads(1)
         try:
-            one = grad_field(torch.as_tensor(jstacks[o])).numpy()
-            mag_t, th_t = tgrad.gradient_fields(torch.as_tensor(jstacks[o]))
-        finally:
-            torch.set_num_threads(n)
-        np.testing.assert_array_equal(
-            tgrad.interleave_field(mag_t, th_t).numpy(), one)
+            assert field.shape == jf.shape
+            mag, jmag = field[0::2], jf[0::2]
+            np.testing.assert_allclose(mag, jmag, rtol=0, atol=1e-3)
+            strong = jmag > 1e-3
+            dth = np.abs(field[1::2] - jf[1::2])[strong]
+            dth = np.minimum(dth, 2 * np.pi - dth)
+            assert dth.max() <= 1e-5, (o, dth.max())
+            # two CPU computations of the port, bit for bit: on one
+            # thread, as PyTorch's CPU atan2 may round the last bit by the
+            # work's split
+            n = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                one = grad_field(torch.as_tensor(jstacks[o])).numpy()
+                mag_t, th_t = tgrad.gradient_fields(
+                    torch.as_tensor(jstacks[o]))
+            finally:
+                torch.set_num_threads(n)
+            np.testing.assert_array_equal(
+                tgrad.interleave_field(mag_t, th_t).numpy(), one)
+        except AssertionError:
+            if field.shape == jf.shape:
+                _keep_field_failure(tmp_path, o, jstacks[o], jf, field)
+            raise
 
 
 @pytest.mark.parametrize("src,dst,shift", [
