@@ -38,7 +38,12 @@ JAX nor popsift_tpu.  In order it:
    that way; the share of rows whose footprint exceeds the staging
    capacity; a digest of K9's output, which equals that of K8 and the
    window form's kernel before K9 read the stack, as
-   tools/torch_time_kernels.py --kernels K9 shows on both trees);
+   tools/torch_time_kernels.py --kernels K9 shows on both trees),
+   K1 at the halo classes only the non-default pyramids reach (4:
+   Fixed9's span 5; 32: VLFeat-relative-all's span 21), the same taps on
+   both axes x255 at octave 0, bit for bit, with cuDNN's time beside
+   them, and K3 and K4 in the OpenCV and VLFeat SiftModes on each mode's
+   own DoG (K3 bit for bit at every octave, K4 at the busiest);
    it times both between CUDA events (the median of repeated calls), the
    kernel also by its device time (torch.profiler, the mean), beside the
    kernel's bound;
@@ -90,11 +95,24 @@ JAX nor popsift_tpu.  In order it:
    a rotated pair's matches within 2 px of the rotation, the matcher's
    time on a 1080p pair, and the wall of a pair (two enqueues, two
    get_devs and the match) for one and two workers;
-9. prints the kernel table as one JSON line (the launches of
-   gather_windows and grad_field are their counts summed over the five
-   paths, each required to be 0; each row also holds its launches in
-   matching mode) and, last, the device line, after checking that no JAX
-   module was imported.
+9. drives the non-default modes (MODES): the OpenCV and VLFeat
+   SiftModes, the Fixed9, Fixed15 and VLFeat-relative-all Gauss modes,
+   direct scaling, Fixed9 with direct scaling, and the grid filter
+   (filter_max_extrema=1000) in its three sortings, each through
+   PopSift(Config(...)) on the four scenes, one timed and one profiled
+   pass: the kernels of its route launched and the others not (no K7 and
+   no K1 chain entry on the fixed route, K2 on the fixed and relative
+   routes, K8 on none), features on every scene as recorded in
+   MODE_FEATURES, a bit-identical repeat, and the card against the CPU on
+   a 640x480 photograph (tests/data/scenes/street.pgm) as in phase 7; the
+   grid filter also triggers on every
+   scene, keeps what ops/filtergrid.py keeps on the CPU from the card's
+   own unfiltered extrema, and its features are a subset of phase 3's;
+10. prints the kernel table as one JSON line (each row's launches are
+   those of its home path, the first that launches it; K8's, on no path,
+   are its counts summed, each required to be 0; each row also holds its
+   launches on every path, matching mode included) and, last, the device
+   line, after checking that no JAX module was imported.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -169,11 +187,59 @@ ILOOP_PATH = ("sep_blur", "blur_chain", "octave_chain", "detect", "refine",
               "ori_hist", "desc_iloop_stack")
 # K9, K12 and K13 read the stack, and the default and stack paths take no
 # windows: no path launches K8.  K7 writes the field of octaves 0-3 and
-# K1's chain entry that of octaves 4-8: no 1080p path launches K2.
+# K1's chain entry that of octaves 4-8: no path of phases 3-8 launches K2
+# (its home paths are phase 9's fixed and relative routes).
 NOT_ON_ANY_PATH = ("gather_windows", "grad_field")
 # the kernels the stack path must not launch: it reads no gradient field
 NOT_ON_STACK_PATH = ("ori_hist", "desc_loop") + NOT_ON_ANY_PATH
 STACK_SWITCH = "POPSIFT_TPU_STACK_KERNELS"
+
+# Phase 9, the non-default modes: each a Config (its setters and their
+# arguments) and its route.  A "chain" route launches the default path's
+# kernels and no K2 or K8; on the "fixed" route every octave's levels come
+# from K1 once a level (no K7 and no K1 chain entry) with the field from
+# K2; on the "relative" route octave 0 does so and the later octaves take
+# the chain.
+MODES = (
+    ("opencv", (("set_mode", "opencv"),), "chain"),
+    ("vlfeat", (("set_mode", "vlfeat"),), "chain"),
+    ("fixed9", (("set_gauss_mode", "fixed9"),), "fixed"),
+    ("fixed15", (("set_gauss_mode", "fixed15"),), "fixed"),
+    ("vlfeat-direct", (("set_gauss_mode", "vlfeat-direct"),), "relative"),
+    ("direct", (("set_scaling_mode", "direct"),), "chain"),
+    ("fixed9-direct", (("set_gauss_mode", "fixed9"),
+                       ("set_scaling_mode", "direct")), "fixed"),
+    ("filter-random", (("set_filter_max_extrema", 1000),
+                       ("set_filter_sorting", "random")), "chain"),
+    ("filter-down", (("set_filter_max_extrema", 1000),
+                     ("set_filter_sorting", "down")), "chain"),
+    ("filter-up", (("set_filter_max_extrema", 1000),
+                   ("set_filter_sorting", "up")), "chain"),
+)
+FIXED_PATH = ("sep_blur", "grad_field", "detect", "refine", "ori_hist",
+              "desc_loop")
+RELATIVE_PATH = LOOP_PATH + ("grad_field",)
+ROUTES = {"chain": (LOOP_PATH, NOT_ON_ANY_PATH),
+          "fixed": (FIXED_PATH, ("octave_chain", "blur_chain",
+                                 "gather_windows")),
+          "relative": (RELATIVE_PATH, ("gather_windows",))}
+# the scene of phase 9's card-against-CPU check (Fixed9: 183 features)
+CPU_CHECK_SCENE = "street.pgm"
+# Features per image of each non-default mode on the four scenes, as the
+# first run of each gave them (NVIDIA H100 80GB HBM3, 700 W); they must
+# not move.  Fixed9's and Fixed9+direct's on the CPU are the same.
+MODE_FEATURES = {
+    "opencv": (1927, 2046, 2077, 2114),
+    "vlfeat": (2306, 2466, 2426, 2502),
+    "fixed9": (1, 1, 2, 2),
+    "fixed15": (4421, 4698, 4642, 4825),
+    "vlfeat-direct": (2305, 2462, 2426, 2500),
+    "direct": (2545, 2727, 2716, 2830),
+    "fixed9-direct": (27, 34, 34, 42),
+    "filter-random": (1004, 1004, 1000, 1004),
+    "filter-down": (1004, 1004, 1000, 1004),
+    "filter-up": (1004, 1004, 1000, 1004),
+}
 
 
 def make_scene(seed: int, h: int, w: int) -> np.ndarray:
@@ -414,8 +480,7 @@ class Table:
             library_ms=None, sub=None):
         """One kernel's row; ``times`` is :func:`kernel_ms`'s pair: ``ms``
         between CUDA events and ``device_ms``.  ``sub`` names a second call
-        shape, kept inside the row of ``name`` (added before it) under that
-        key."""
+        shape, kept inside the row of ``name`` under that key."""
         ms, dms = times
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_OPS_PER_S * 1e3
@@ -427,9 +492,13 @@ class Table:
               f"bound_ms={bound:.6f} ({by}: {nbytes:.0f} B, {nops:.0f} ops) "
               f"library_ms={lib}", flush=True)
         if sub is not None:
-            self.subs.setdefault(name, {})[sub] = dict(
-                max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=library_ms)
+            row = dict(max_abs_err=err, ms=ms, device_ms=dms,
+                       plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                       library_ms=library_ms)
+            if name in self.rows:
+                self.rows[name][sub] = row
+            else:
+                self.subs.setdefault(name, {})[sub] = row
             return
         src, rep = self.SOURCES[name]
         self.rows[name] = dict(
@@ -689,7 +758,138 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     check_stack_kernels(torch, plan, ow, st, e, table, timed=False)
 
     check_windows_and_grid(torch, plan, stack, args6[1:6], table)
+    check_blur_classes(torch, pt, scene, table, dev)
+    for mode in ("opencv", "vlfeat"):
+        check_mode_keypoints(torch, pt, scene, mode, table, dev)
     torch.cuda.synchronize()
+
+
+def check_blur_classes(torch, pt, scene: np.ndarray, table: Table,
+                       dev) -> None:
+    """K1 at the halo classes no default path reaches, on octave 0 of the
+    non-default pyramids (the same taps on both axes, x255, from the
+    resampled input): class 4, Fixed9's abs_o0 level 1 (span 5), and class
+    32, VLFeat-relative-all's abs_o0 level 5 (span 21, a 160 KB tile, one
+    block per SM).  Bit for bit against the plain version, timed beside
+    its bound and one cuDNN convolution of the edge-padded plane by the
+    blur's 2-D kernel x255 (float32, TF32 off)."""
+    from popsift_torch import extract as ext
+    from popsift_torch.gauss import build_gauss_info
+    from popsift_torch.kernels import blur
+    from popsift_torch.ops import pyramid as ops_pyr
+
+    h_in, w_in = scene.shape
+    img = ext.to_unit_image(scene, dev)
+    for gmode, lvl in (("fixed9", 1), ("vlfeat-direct", 5)):
+        cfg = pt.Config()
+        cfg.set_gauss_mode(gmode)
+        plan = ext.make_plan(cfg, w_in, h_in)
+        gauss = build_gauss_info(cfg)
+        w, h = plan.dims[0]
+        base = ops_pyr.resample_input(img, h, w, ops_pyr.apart_shift(
+            plan.gauss_mode, plan.sift_mode,
+            plan.upscale_factor)).contiguous()
+        taps, span = gauss.abs_o0.filter[lvl], int(gauss.abs_o0.span[lvl])
+        p_class = blur.halo_class(span)
+        args = (taps, span, taps, span)
+        k = blur.sep_blur(base, *args, hscale=255.0)
+        p = blur.sep_blur_plain(base, *args, hscale=255.0)
+        require(torch.equal(k, p), f"K1 class {p_class} (span {span}): "
+                f"kernel != plain")
+        ms = kernel_ms(lambda: blur.sep_blur(base, *args, hscale=255.0))
+        pms = cuda_ms(lambda: blur.sep_blur_plain(base, *args, hscale=255.0),
+                      reps=10)
+        full = taps[:span][::-1].tolist() + taps[1:span].tolist()
+        t2 = torch.as_tensor(np.outer(full, full) * 255.0,
+                             dtype=torch.float32, device=dev)[None, None]
+        padded = torch.nn.functional.pad(base[None, None], (span - 1,) * 4,
+                                         mode="replicate")
+        lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(padded, t2),
+                         reps=5, warmup=1)
+        lib_err = max_abs(torch.nn.functional.conv2d(padded, t2)[0, 0], k)
+        print(f"  (cuDNN conv2d of the padded plane differs by "
+              f"{lib_err:.6g})", flush=True)
+        px = h * w
+        table.add("sep_blur", f"K1 sep_blur halo class {p_class}: {gmode} "
+                  f"abs_o0 level {lvl}, span {span} both axes, x255 "
+                  f"({h}x{w})", max_abs(k, p), ms, pms, 8 * px,
+                  OPS_BLUR_PER_TAP * 2 * span * px, library_ms=lib_ms,
+                  sub=f"class{p_class}")
+
+
+def check_mode_keypoints(torch, pt, scene: np.ndarray, mode: str,
+                         table: Table, dev) -> None:
+    """K3 and K4 (refine_compact) in the OpenCV or VLFeat SiftMode, on that
+    mode's own DoG of its busiest octave: K3 bit for bit against its plain
+    version; K4 bit for bit against compact_extrema of the per-candidate
+    kernel, and against its plain version as phase 2's default check holds
+    it (sigma within 2 ulp).  Timed as sub-rows of the two kernels."""
+    from popsift_torch import extract as ext
+    from popsift_torch.gauss import build_gauss_info
+    from popsift_torch.kernels import detect, refine
+    from popsift_torch.ops import extrema as ops_ext
+    from popsift_torch.ops import pyramid as ops_pyr
+
+    cfg = pt.Config(sift_mode=pt.SiftMode(mode))
+    h_in, w_in = scene.shape
+    plan = ext.make_plan(cfg, w_in, h_in)
+    gauss = build_gauss_info(cfg)
+    gate, border = detect.gate_for(plan.sift_mode, plan.peak_threshold)
+    img = ext.to_unit_image(scene, dev)
+    src, best = img, None
+    for o in range(plan.octaves):
+        _, src, dog, _ = ops_pyr.octave_outputs(
+            src, o, plan.dims, plan.levels, gauss, plan.sift_mode,
+            plan.upscale_factor, False, need_field=False, image=img)
+        m = detect.detect(dog, plan.sift_mode, plan.peak_threshold)
+        require(torch.equal(m, detect.detect_plain(dog, gate, border)),
+                f"K3 ({mode}) at octave {o}: kernel != plain")
+        c = ops_ext.compact_mask(m, plan.cand_caps[o])
+        if best is None or c.count > best[0]:
+            best = (c.count, o, dog, c)
+    n, o, dog, cands = best
+    w, h = plan.dims[o]
+    px = h * w
+    nl = dog.shape[0] - 2
+    ms = kernel_ms(lambda: detect.detect(dog, plan.sift_mode,
+                                         plan.peak_threshold))
+    pms = cuda_ms(lambda: detect.detect_plain(dog, gate, border), reps=10)
+    table.add("detect", f"K3 detect, {mode} mode, octave {o} "
+              f"({dog.shape[0]},{h},{w}) -> {n} candidates; bit-equal at "
+              f"every octave", 0.0, ms, pms, (4 * dog.shape[0] + nl) * px,
+              OPS_DETECT * nl * px, sub=mode)
+
+    rp = ext.refine_params_for(plan, o, dog.shape[0])
+    cx, cy, cz = cands.x, cands.y, cands.z + 1
+    kr = refine.refine(dog, cx, cy, cz, rp)
+    iters = int(refine.refine_plain(dog, cx, cy, cz, rp,
+                                    return_iters=True)[-1].sum())
+    cap = plan.ext_caps[o]
+    e = refine.refine_compact(dog, cands, rp, cap)
+    q = ops_ext.compact_extrema(*kr, cap)
+    p = refine.refine_compact_plain(dog, cands, rp, cap)
+    for other, sig, what in ((q, 0, "compact_extrema of the per-candidate "
+                              "kernel"), (p, 2, "its plain version")):
+        require(e.count == other.count and e.overflow == other.overflow
+                and all(torch.equal(getattr(e, k), getattr(other, k))
+                        for k in ("xpos", "ypos", "lpos", "cell"))
+                and ulps(e.sigma, other.sigma) <= sig,
+                f"K4 ({mode}) compacted differs from {what}")
+    require(e.count > 0, f"K4 ({mode}): no extrema at octave {o}")
+    print(f"  K4 {mode} mode, octave {o}: {e.count} of {n} candidates kept "
+          f"after {iters} slot-iterations; bit-equal to compact_extrema of "
+          f"the per-candidate kernel, to the plain version but sigma "
+          f"({ulps(e.sigma, p.sigma)} ulp)", flush=True)
+    ms = kernel_ms(lambda: refine.refine_compact(dog, cands, rp, cap),
+                   per_launch=2)
+    pms = cuda_ms(lambda: refine.refine_compact_plain(dog, cands, rp, cap),
+                  reps=10)
+    table.add("refine", f"K4 refine_compact, {mode} mode, {n} candidates "
+              f"-> {e.count} extrema (2 kernels)",
+              max(max_abs(e.xpos, p.xpos), max_abs(e.ypos, p.ypos),
+                  max_abs(e.sigma, p.sigma)), ms, pms,
+              n * 12 + iters * 27 * 4 + 20 * e.count + 8,
+              OPS_REFINE_ITER * iters, sub=mode)
 
 
 def check_refine_compact(torch, dog, cands, rp, cap: int, iters: int,
@@ -1371,15 +1571,19 @@ MAIN_PATH_PASSES = 5
 def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
              device="cuda", passes: int = MAIN_PATH_PASSES,
              not_launched=(), not_profiled=(),
-             tally_boxes: bool = False) -> tuple[dict, list]:
-    """Phases 3-6: the user-facing entry point on the card with ``cfg``.
-    The scenes go through ``passes`` times; the launch counts are those of
-    the first pass, and ms per image is the median pass, with the range.
-    Every kernel of ``path_kernels`` must have been launched, and none of
-    ``not_launched``; no kernel of the profiled pass may be named after
-    one of ``not_profiled``.  With ``tally_boxes``, prints per scene the
-    descriptor rows whose footprint exceeds K9/K12/K13's staging capacity.
-    Returns the path's numbers and the first pass's features."""
+             tally_boxes: bool = False, budget_dropped=BUDGET_DROPPED,
+             max_k1: int | None = MAX_K1_CALLS) -> tuple[dict, list]:
+    """Phases 3-6 and 9: the user-facing entry point on the card with
+    ``cfg``.  The scenes go through ``passes`` times; the launch counts
+    are those of the first pass, and ms per image is the median pass, with
+    the range.  Every kernel of ``path_kernels`` must have been launched,
+    and none of ``not_launched``; no kernel of the profiled pass may be
+    named after one of ``not_profiled``.  Per scene the candidates the
+    compaction budget dropped must be ``budget_dropped`` and K1's calls at
+    most ``max_k1`` (each printed only where None).  With
+    ``tally_boxes``, prints per scene the descriptor rows whose footprint
+    exceeds K9/K12/K13's staging capacity.  Returns the path's numbers and
+    the first pass's features."""
     from popsift_torch import kernels
     from popsift_torch.ops import extrema as ops_ext
 
@@ -1435,11 +1639,11 @@ def run_path(torch, pt, scenes, cfg, label: str, path_kernels,
               f"footprint): "
               + ", ".join(f"{b[1]}/{b[0]} ({100.0 * b[1] / max(b[0], 1):.2f}"
                           f"%; {b[2]} px)" for b in boxes), flush=True)
-    require(tuple(dropped) == BUDGET_DROPPED,
+    require(budget_dropped is None or tuple(dropped) == budget_dropped,
             f"the budget dropped {dropped} candidates, recorded "
-            f"{BUDGET_DROPPED}")
-    require(max(k1_calls) <= MAX_K1_CALLS,
-            f"K1 called {k1_calls} times per image (at most {MAX_K1_CALLS})")
+            f"{budget_dropped}")
+    require(max_k1 is None or max(k1_calls) <= max_k1,
+            f"K1 called {k1_calls} times per image (at most {max_k1})")
     for name in path_kernels:
         require(counts[name] > 0,
                 f"kernel {name} was not launched on the {label} path")
@@ -1555,19 +1759,22 @@ def same_keypoints(a, b) -> bool:
                          "debug_octave"))
 
 
-def check_against_cpu(torch, pt, cfg, label: str) -> None:
-    """Phase 7: the card's features of a small scene against the plain
-    versions on the CPU.  Both sides round each operation the same way,
-    but exp/sin/cos/atan2/pow come from different maths libraries, so a
-    feature may move by a few ulp; 99% of the CPU features must be found
-    on the card at the same octave within 1e-3 px and sigma rtol 1e-4, and
-    99% of those found must have their first descriptor within 1e-3."""
+def check_against_cpu(torch, pt, cfg, label: str, scene=None) -> None:
+    """Phase 7: the card's features of a small scene (by default a 320x240
+    synthetic one) against the plain versions on the CPU.  Both sides
+    round each operation the same way, but exp/sin/cos/atan2/pow come from
+    different maths libraries, so a feature may move by a few ulp; 99% of
+    the CPU features must be found on the card at the same octave within
+    1e-3 px and sigma rtol 1e-4, and 99% of those found must have their
+    first descriptor within 1e-3."""
     from popsift_torch.extract import extract_features
 
-    scene = make_scene(11, 240, 320)
+    if scene is None:
+        scene = make_scene(11, 240, 320)
+    h, w = scene.shape
     cpu = extract_features(scene, cfg, device="cpu")
     gpu = extract_features(scene, cfg, device="cuda")
-    check_output(gpu, 320, 240)
+    check_output(gpu, w, h)
     sc, sg = cpu.soa(), gpu.soa()
     nc, ng = cpu.get_feature_count(), gpu.get_feature_count()
     d = np.hypot(sc["xpos"][:, None] - sg["xpos"][None, :],
@@ -1582,7 +1789,7 @@ def check_against_cpu(torch, pt, cfg, label: str) -> None:
     ddiff = np.abs(cpu.get_descriptors()[ic[both]]
                    - gpu.get_descriptors()[ig[both]]).max(axis=1)
     require(ddiff.size > 0, f"no matched descriptors ({label})")
-    print(f"  {label}: 320x240 scene, {nc} CPU / {ng} GPU features, "
+    print(f"  {label}: {w}x{h} scene, {nc} CPU / {ng} GPU features, "
           f"{int(hit.sum())} matched; first descriptors of matched features "
           f"within {float(np.median(ddiff)):.3g} (median), "
           f"{float(ddiff.max()):.3g} (largest)", flush=True)
@@ -1961,6 +2168,115 @@ def run_matching(torch, pt, scenes, loop_feats, smi: str) -> dict:
                 pair_wall=walls)
 
 
+def mode_label(settings) -> str:
+    return "Config(" + ", ".join(f"{k.removeprefix('set_')}={v}"
+                                 for k, v in settings) + ")"
+
+
+def subset_of(part, whole) -> bool:
+    """Whether every feature of ``part`` is one of ``whole``'s, with the
+    same octave, position, sigma and orientations, to the bit."""
+    def rows(f):
+        s = f.soa()
+        return [(int(o), float(x), float(y), float(sg), int(n), a.tobytes())
+                for o, x, y, sg, n, a in zip(
+                    s["debug_octave"], s["xpos"], s["ypos"], s["sigma"],
+                    s["num_ori"], s["orientation"])]
+    return set(rows(part)) <= set(rows(whole))
+
+
+def check_grid_filter(torch, pt, scenes, cfg, feats, loop_feats) -> list:
+    """The grid filter on the card: on each scene it triggers (its own
+    unfiltered extrema exceed the budget x 1.1), its keep masks equal
+    those of ops/filtergrid.py run on the CPU on the card's own unfiltered
+    extrema, the path's features are as many as the masks keep, and they
+    are a subset of the unfiltered path's (phase 3's default features,
+    the same Config without the filter).  Returns (kept, total) per
+    scene."""
+    from popsift_torch import extract as ext
+    from popsift_torch.gauss import build_gauss_info
+    from popsift_torch.ops import filtergrid as ops_fg
+
+    h, w = scenes[0].shape
+    plan = ext.make_plan(cfg, w, h)
+    gauss = build_gauss_info(cfg)
+    budget = plan.filter_max_extrema
+    out = []
+    for i, scene in enumerate(scenes):
+        img = ext.to_unit_image(scene, "cuda")
+        exts = [e for _, _, e in ext.octave_keypoints_all(
+            plan, gauss, img, False, True)]
+        total = sum(e.count for e in exts)
+        require(ops_fg.triggers(budget, total),
+                f"scene {i}: {total} extrema do not trigger the filter "
+                f"(budget {budget})")
+        keeps = ops_fg.grid_filter_keep_masks(
+            exts, budget, plan.filter_grid_size, plan.grid_filter_mode)
+        host = [e._replace(**{k: getattr(e, k).cpu() for k in
+                              ("xpos", "ypos", "lpos", "sigma", "cell")})
+                for e in exts]
+        plain = ops_fg.grid_filter_keep_masks(
+            host, budget, plan.filter_grid_size, plan.grid_filter_mode)
+        require(all(torch.equal(k.cpu(), p) for k, p in zip(keeps, plain)),
+                f"scene {i}: the card's keep masks differ from the plain "
+                f"filter's on the CPU")
+        kept = sum(int(k.sum()) for k in keeps)
+        require(feats[i].get_feature_count() == kept,
+                f"scene {i}: {feats[i].get_feature_count()} features, the "
+                f"masks keep {kept}")
+        require(subset_of(feats[i], loop_feats[i]),
+                f"scene {i}: filtered features not among the unfiltered")
+        out.append((kept, total))
+    print(f"  grid filter (budget {budget}): kept/extrema per scene "
+          f"{out}; triggered on every scene; keep masks equal the plain "
+          f"filter's on the CPU; features a subset of the unfiltered "
+          f"path's", flush=True)
+    return out
+
+
+def run_modes(torch, pt, scenes, loop_feats) -> tuple[dict, list]:
+    """Phase 9: each non-default mode of MODES through PopSift on the four
+    scenes (one timed pass, one profiled), with its route's kernels
+    launched and the others not, a bit-identical repeat, the recorded
+    features per image, and the card against the CPU on a small scene; the
+    grid filter also by :func:`check_grid_filter`.  Returns the stats per
+    mode and the modes whose features are not recorded."""
+    # Fixed9 finds no feature on the small synthetic scene: the card is
+    # held to the CPU on a real 640x480 photograph instead
+    small = read_pgm(HERE / "tests" / "data" / "scenes" / CPU_CHECK_SCENE)
+    stats, unrecorded = {}, []
+    for name, settings, route in MODES:
+        cfg = pt.Config()
+        for setter, arg in settings:
+            getattr(cfg, setter)(arg)
+        launched, absent = ROUTES[route]
+        label = mode_label(settings)
+        print(f"phase 9: {name}, ", end="")
+        st, feats = run_path(torch, pt, scenes, cfg, f"PopSift({label})",
+                             launched, passes=1, not_launched=absent,
+                             not_profiled=absent, budget_dropped=None,
+                             max_k1=None)
+        got = tuple(st["features"])
+        want = MODE_FEATURES.get(name)
+        if want is None:
+            unrecorded.append(name)
+            print(f"  features per image {got}: none recorded", flush=True)
+        else:
+            require(got == want, f"{name}: features per image {got}, "
+                    f"recorded {want}")
+            print(f"  features per image as recorded: {got}", flush=True)
+        if cfg.filter_max_extrema > 0:
+            st["filter_kept_total"] = check_grid_filter(
+                torch, pt, scenes, cfg, feats, loop_feats)
+        check_against_cpu(torch, pt, cfg, name, scene=small)
+        busy = st.get("device_busy_ms")
+        print(f"  {name}: {st['ms_per_image']:.3f} ms/image, device busy "
+              f"{fmt_ms(busy)} ms/image, peak {st['peak_mem_gib']:.3f} GiB",
+              flush=True)
+        stats[name] = st
+    return stats, unrecorded
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2058,13 +2374,8 @@ def main() -> int:
     homes = {"default": LOOP_PATH, "notile": NOTILE_PATH,
              "stack": STACK_PATH, "grid": GRID_PATH, "iloop": ILOOP_PATH}
     for name in table.rows:
-        by_path = {p: st["counts"][name] for p, st in stats.items()}
-        # K8 and K2 are on no path (their counts, required 0 on each, are
-        # their sums)
-        home = next((p for p, kern in homes.items() if name in kern), None)
-        table.rows[name]["launches"] = (by_path[home] if home
-                                        else sum(by_path.values()))
-        table.rows[name]["launches_by_path"] = by_path
+        table.rows[name]["launches_by_path"] = {
+            p: st["counts"][name] for p, st in stats.items()}
 
     print("phase 7: the card against the CPU", flush=True)
     check_against_cpu(torch, pt, pt.Config(), "default")
@@ -2083,12 +2394,33 @@ def main() -> int:
                     for m in sys.modules), "JAX was imported")
     print("  (f) no JAX module and no popsift_tpu module was imported",
           flush=True)
+
+    mode_stats, unrecorded = run_modes(torch, pt, scenes, loop_feats)
+    for name, _, route in MODES:
+        homes[name] = ROUTES[route][0]
+    for name in table.rows:
+        by_path = table.rows[name]["launches_by_path"]
+        for mode, st in mode_stats.items():
+            by_path[mode] = st["counts"][name]
+        # K8 is on no path (its count, required 0 on each, is its sum);
+        # K2's home paths are the fixed and relative routes
+        home = next((p for p, kern in homes.items() if name in kern), None)
+        table.rows[name]["launches"] = (
+            by_path[home] if home
+            else sum(v for p, v in by_path.items() if p != "matching"))
+
+    require(not any(m == "jax" or m.startswith(("jax.", "popsift_tpu"))
+                    for m in sys.modules), "JAX was imported")
+    print("phase 10: the kernel table", flush=True)
     print(json.dumps({f"{p}_path": st for p, st in stats.items()}),
           flush=True)
     print(json.dumps({"matching": match_stats}), flush=True)
+    print(json.dumps({"modes": mode_stats}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": [table.rows[k] for k in _lib.KERNELS]}),
           flush=True)
+    require(not unrecorded, f"no recorded features per image for "
+            f"{unrecorded}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

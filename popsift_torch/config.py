@@ -5,9 +5,9 @@ string parsers, so that a user can switch packages without relearning the
 knobs.  The port keeps its own copy because importing anything from
 ``popsift_tpu`` imports JAX.
 
-Only the default extraction path is implemented in this package so far;
+Every extraction mode of the JAX package is implemented;
 :func:`unsupported_modes` names the settings that make extraction raise
-``NotImplementedError``.
+``NotImplementedError`` (the ``log_mode=ALL`` dump tree).
 """
 
 from __future__ import annotations
@@ -298,23 +298,24 @@ class Config:
 
 
 def unsupported_modes(config: Config) -> list[str]:
-    """Settings this package does not implement yet, by name."""
+    """Settings this package does not implement yet, by name: the
+    ``log_mode=ALL`` dump tree (popsift_tpu/debugdump.py)."""
     out = []
-    if config.sift_mode != SiftMode.POPSIFT:
-        out.append(f"sift_mode={config.sift_mode.value}")
-    if config.gauss_mode in (GaussMode.FIXED9, GaussMode.FIXED15,
-                             GaussMode.VLFEAT_RELATIVE_ALL):
-        out.append(f"gauss_mode={config.gauss_mode.value}")
-    if config.scaling_mode == ScalingMode.SCALE_DIRECT:
-        out.append("scaling_mode=direct")
-    if config.filter_max_extrema > 0:
-        out.append("grid filter (filter_max_extrema > 0)")
+    if config.log_mode == LogMode.ALL:
+        out.append("log_mode=all")
     return out
 
 
 def check_supported(config: Config) -> None:
+    """Raise on a setting this package does not implement, and, as the JAX
+    package's pyramid does (popsift_tpu/ops/pyramid.py:236-240), on a
+    Fixed9/Fixed15 configuration without levels + 3 == 6."""
     missing = unsupported_modes(config)
     if missing:
         raise NotImplementedError(
             "popsift_torch does not implement " + ", ".join(missing)
             + " yet; use popsift_tpu for these modes")
+    if (config.gauss_mode in (GaussMode.FIXED9, GaussMode.FIXED15)
+            and max(2, config.levels) + 3 != 6):
+        raise ValueError(
+            "Unsupported number of levels for making all octaves at once")

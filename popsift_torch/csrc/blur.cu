@@ -60,6 +60,8 @@
 // same stack.
 #include <cooperative_groups.h>
 
+#include <mutex>
+
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -476,14 +478,30 @@ bool aligned(const void* p) {
 }
 
 // The dynamic shared memory attribute (and, for the chain, the
-// non-portable cluster size) of each instance, granted once.
+// non-portable cluster size) of one kernel instance, which CUDA keeps per
+// device: granted on each device before its first launch there.
+constexpr int kMaxDevices = 64;
+
+struct Grants {
+    std::mutex lock;
+    bool done[kMaxDevices] = {};
+};
+
 template <typename K>
-int grant(K kernel, int smem, bool cluster) {
-    cudaError_t e = cudaFuncSetAttribute(
+int grant(Grants& g, K kernel, int smem, bool cluster) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 0 || dev >= kMaxDevices)
+        return static_cast<int>(cudaErrorInvalidDevice);
+    std::lock_guard<std::mutex> guard(g.lock);
+    if (g.done[dev]) return 0;
+    e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess && cluster)
         e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e == cudaSuccess) g.done[dev] = true;
     return static_cast<int>(e);
 }
 
@@ -494,7 +512,8 @@ int launch_blur(const float* src, float* out, float* dog, int H, int W,
         4 * tile_smem_floats(kTileRows, kTileCols, P, a.v.span);
     const int most =
         4 * tile_smem_floats(kTileRows, kTileCols, P, P + 1);
-    static const int granted = grant(sep_blur<P>, most, false);
+    static Grants grants;
+    const int granted = grant(grants, sep_blur<P>, most, false);
     if (granted != 0) return granted;
     const dim3 grid((W + kTileCols - 1) / kTileCols,
                     (H + kTileRows - 1) / kTileRows);
@@ -508,7 +527,8 @@ int launch_chain(float* stack, float* dog, float* field, int H, int W,
     const ChainBands b = chain_bands(H);
     const int smem = 4 * chain_smem_floats(b.rows, W, P);
     if (smem > kChainSmem) return static_cast<int>(cudaErrorInvalidValue);
-    static const int granted = grant(blur_chain<P>, kChainSmem, true);
+    static Grants grants;
+    const int granted = grant(grants, blur_chain<P>, kChainSmem, true);
     if (granted != 0) return granted;
     c.rows = b.rows;
     cudaLaunchConfig_t cfg = {};

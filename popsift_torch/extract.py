@@ -2,9 +2,13 @@
 
 The counterpart of ``popsift_tpu.extract`` + ``popsift_tpu.staged``:
 :func:`make_plan` gives the static per-octave shapes and capacities, and
-:func:`extract_features` runs the stages octave by octave, reading the
-candidate, extremum and orientation counts back to the host between
-stages (shapes are dynamic on the GPU, so there are no compile buckets).
+:func:`extract_features` runs the stages as the staged extractor does:
+the pyramid and keypoints of every octave (:func:`octave_keypoints_all`),
+the grid filter over all of them (:func:`filter_extrema`), then
+orientation and descriptors octave by octave (:func:`octave_features`),
+reading the candidate, extremum and orientation counts back to the host
+between stages (shapes are dynamic on the GPU, so there are no compile
+buckets).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from .kernels.grad import grad_field
 from .kernels.refine import refine_compact, refine_params
 from .ops import descriptors as ops_desc
 from .ops import extrema as ops_ext
+from .ops import filtergrid as ops_fg
 from .ops import orientation as ops_ori
 from .ops import pyramid as ops_pyr
 
@@ -224,18 +229,17 @@ def dispatch_descriptors(plan: ExtractorPlan, consts: ConstInfo | None,
         consts.desc_gauss, consts.desc_tile)
 
 
-def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
-                            desc_transfer: str, field=None,
-                            consts: ConstInfo | None = None,
-                            stack_kernels: bool = False,
-                            want_dev: bool = False) -> dict:
-    """Everything after the pyramid for octave ``o``; host arrays, but
-    with ``want_dev`` the descriptors (``desc``) stay a float32 tensor on
-    the device.  With ``stack_kernels``, orientation and loop descriptors
-    read ``stack`` (K10, K11); otherwise they read ``field``, computed
-    from ``stack`` (K2) unless it is given.  ``consts`` is needed by the
-    NoTile and IGrid modes only."""
-    _, ext = octave_keypoints(plan, o, dog)
+def octave_features(plan: ExtractorPlan, o: int, stack, ext,
+                    desc_transfer: str, field=None,
+                    consts: ConstInfo | None = None,
+                    stack_kernels: bool = False,
+                    want_dev: bool = False) -> dict:
+    """Orientation and descriptors of octave ``o``'s extrema ``ext``; host
+    arrays, but with ``want_dev`` the descriptors (``desc``) stay a
+    float32 tensor on the device.  With ``stack_kernels``, orientation and
+    loop descriptors read ``stack`` (K10, K11); otherwise they read
+    ``field``, computed from ``stack`` (K2) unless it is given.  ``consts``
+    is needed by the NoTile and IGrid modes only."""
     if not stack_kernels and field is None:
         field = grad_field(stack)
     num_ori, oris = ops_ori.assign_orientations(
@@ -257,13 +261,60 @@ def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
                 overflow=ext.overflow)
 
 
+def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
+                            desc_transfer: str, field=None,
+                            consts: ConstInfo | None = None,
+                            stack_kernels: bool = False,
+                            want_dev: bool = False) -> dict:
+    """Everything after the pyramid for octave ``o`` without the grid
+    filter: :func:`octave_keypoints` on ``dog``, then
+    :func:`octave_features`."""
+    _, ext = octave_keypoints(plan, o, dog)
+    return octave_features(plan, o, stack, ext, desc_transfer, field=field,
+                           consts=consts, stack_kernels=stack_kernels,
+                           want_dev=want_dev)
+
+
+def octave_keypoints_all(plan: ExtractorPlan, gauss, img: torch.Tensor,
+                         full_stacks: bool, need_field: bool) -> list:
+    """Stage 1 of every octave (popsift_tpu staged.py:158-245): the
+    pyramid, DoG and field, then detection and refinement.  ``img`` is
+    the [0, 1] input on the device.  Returns per octave (stack, field,
+    Extrema); each DoG is dropped once its keypoints are found."""
+    out = []
+    src = img
+    for o in range(plan.octaves):
+        stack, src, dog, field = ops_pyr.octave_outputs(
+            src, o, plan.dims, plan.levels, gauss, plan.sift_mode,
+            plan.upscale_factor, full_stacks, need_field=need_field,
+            gauss_mode=plan.gauss_mode, scaling_mode=plan.scaling_mode,
+            image=img)
+        out.append((stack, field, octave_keypoints(plan, o, dog)[1]))
+        del dog
+    return out
+
+
+def filter_extrema(plan: ExtractorPlan, exts: list) -> list:
+    """The grid filter over every octave's extrema when
+    ``filter_max_extrema > 0`` (popsift_tpu staged.py:240-245), else
+    ``exts`` as they are."""
+    if plan.filter_max_extrema <= 0:
+        return exts
+    keeps = ops_fg.grid_filter_keep_masks(
+        exts, plan.filter_max_extrema, plan.filter_grid_size,
+        plan.grid_filter_mode)
+    return [ops_fg.recompact(e, k) for e, k in zip(exts, keeps)]
+
+
 def extract_features(image, config: Config, device="cuda",
                      want_dev: bool = False) -> FeaturesHost | FeaturesDev:
     """Extract the features of one (H, W) uint8 or [0,1] float image:
     a :class:`FeaturesHost`, or with ``want_dev`` a :class:`FeaturesDev`
     whose descriptors stay on ``device`` (MatchingMode), equal to the
     host descriptors bit for bit.  :func:`stack_kernels_enabled` is read
-    once, here, and holds for the whole image."""
+    once, here, and holds for the whole image.  Every octave's stack and
+    field stay on the device until its descriptors are done, since the
+    grid filter needs every octave's extrema first."""
     check_supported(config)
     h, w = np.shape(image)
     plan = make_plan(config, w, h)
@@ -278,14 +329,15 @@ def extract_features(image, config: Config, device="cuda",
     consts = (build_const_info(config, device=device)
               if plan.desc_mode in (DescMode.NOTILE, DescMode.IGRID)
               else None)
+    stage1 = octave_keypoints_all(plan, gauss, img, full_stacks,
+                                  need_field=not stack_kernels)
+    exts = filter_extrema(plan, [e for _, _, e in stage1])
     octaves = []
-    src = img
-    for o in range(plan.octaves):
-        stack, src, dog, field = ops_pyr.octave_outputs(
-            src, o, plan.dims, plan.levels, gauss, plan.sift_mode,
-            plan.upscale_factor, full_stacks, need_field=not stack_kernels)
-        octaves.append(extract_octave_features(
-            plan, o, stack, dog, config.desc_transfer, field=field,
+    for o, ext in enumerate(exts):
+        stack, field, _ = stage1[o]
+        stage1[o] = None          # free the octave once it is done
+        octaves.append(octave_features(
+            plan, o, stack, ext, config.desc_transfer, field=field,
             consts=consts, stack_kernels=stack_kernels, want_dev=want_dev))
     if want_dev:
         return assemble_features_dev(octaves, plan.upscale_factor, device)

@@ -4,7 +4,9 @@ Per octave a (levels+3, H, W) stack of blurred levels, scaled to 0..255,
 the (levels+2, H, W) DoG and the (2 (levels+3), H, W) gradient field.
 Level 0 of octave 0 is the resampled input blurred with ``dd[0]``
 horizontally, x255, and ``inc[0]`` vertically (K1); the level 0 of a later
-octave picks every second pixel of level ``levels`` of the octave before.
+octave picks every second pixel of level ``levels`` of the octave before,
+or with ``scaling_mode=direct`` is the input resampled to the octave and
+blurred with ``dd[o]`` and ``inc[0]``.
 Every further level blurs the previous one with ``inc[l]``: on octaves that
 ``octave_chain_ok`` admits, K7 computes all of them with the DoG and the
 field in one launch; the others run K1.  K1 takes an octave that
@@ -12,6 +14,13 @@ field in one launch; the others run K1.  K1 takes an octave that
 memory) in one launch of its chain entry, which also writes the field,
 and a larger one level by level (each launch also writes its DoG layer),
 followed by K2 for the field.
+
+Two strategies build some octaves' levels without the chain, as the JAX
+package does: Fixed9/Fixed15 every octave (octave 0's levels each from the
+input with ``abs_o0``, a later octave's levels 1.. each from its level 0
+with ``abs_oN``), and VLFeat-relative-all octave 0 (its levels each from
+the input with ``abs_o0``).  Those octaves run K1 once a level, take the
+DoG as the difference of adjacent levels and the field from K2.
 """
 
 from __future__ import annotations
@@ -19,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import SiftMode
+from ..config import GaussMode, ScalingMode, SiftMode
 from ..gauss import GaussInfo
 from ..kernels.blur import blur_chain, chain_fits, sep_blur
 from ..kernels.grad import grad_field
@@ -99,18 +108,82 @@ def input_shift(sift_mode: SiftMode, upscale_factor: float,
 
 
 def octave_level0(src: torch.Tensor, octave: int, dims, gauss: GaussInfo,
-                  sift_mode: SiftMode,
-                  upscale_factor: float) -> torch.Tensor:
-    """Level 0 of ``octave``: from the [0, 1] input image for octave 0,
-    else from ``src``, level L-3 of the octave before (an (h, w) plane)."""
+                  sift_mode: SiftMode, upscale_factor: float,
+                  image: torch.Tensor | None = None,
+                  scaling_mode: ScalingMode = ScalingMode.SCALE_DEFAULT
+                  ) -> torch.Tensor:
+    """Level 0 of ``octave`` on the incremental chain's route: from the
+    [0, 1] input image for octave 0 (``src``), else from ``src``, level L-3
+    of the octave before (an (h, w) plane), or with ``scaling_mode=direct``
+    from ``image``, the input (popsift_tpu/ops/pyramid.py:285-291)."""
     w, h = dims[octave]
-    if octave == 0:
-        base = resample_input(src, h, w,
-                              input_shift(sift_mode, upscale_factor, 0))
-        return sep_blur(base.contiguous(), gauss.dd.filter[0],
-                        gauss.dd.span[0], gauss.inc.filter[0],
+    if octave == 0 or scaling_mode == ScalingMode.SCALE_DIRECT:
+        inp = src if octave == 0 else image
+        base = resample_input(inp, h, w,
+                              input_shift(sift_mode, upscale_factor, octave))
+        return sep_blur(base.contiguous(), gauss.dd.filter[octave],
+                        gauss.dd.span[octave], gauss.inc.filter[0],
                         gauss.inc.span[0], hscale=255.0)
     return downscale_by_2(src)[:h, :w].contiguous()
+
+
+def is_fixed(gauss_mode: GaussMode) -> bool:
+    return gauss_mode in (GaussMode.FIXED9, GaussMode.FIXED15)
+
+
+def levels_apart(gauss_mode: GaussMode, octave: int) -> bool:
+    """Whether ``octave``'s levels are built each on its own, not by the
+    incremental chain: every Fixed9/Fixed15 octave, and octave 0 of
+    VLFeat-relative-all (popsift_tpu/ops/pyramid.py:234-272, and its
+    chain's refusal at :355 and :362-363)."""
+    return is_fixed(gauss_mode) or (
+        gauss_mode == GaussMode.VLFEAT_RELATIVE_ALL and octave == 0)
+
+
+def apart_shift(gauss_mode: GaussMode, sift_mode: SiftMode,
+                upscale_factor: float) -> float:
+    """The sub-pixel shift at which octave 0's levels read the input when
+    :func:`levels_apart`: a fixed octave 0 reads it at 0.5 * 2^up whatever
+    the SiftMode (popsift_tpu/ops/pyramid.py:244)."""
+    if is_fixed(gauss_mode):
+        return 0.5 * 2.0 ** upscale_factor
+    return input_shift(sift_mode, upscale_factor, 0)
+
+
+def levels_from(base: torch.Tensor, table, levels: int, first: int,
+                hscale: float) -> torch.Tensor:
+    """An octave's (L, H, W) stack whose levels ``first``.. are each the
+    separable blur of ``base`` by ``table.filter[l]`` on both axes, x
+    ``hscale`` (K1 once a level); levels below ``first`` are left to the
+    caller."""
+    stack = torch.empty((levels + 3,) + tuple(base.shape),
+                        dtype=torch.float32, device=base.device)
+    for lvl in range(first, levels + 3):
+        sep_blur(base, table.filter[lvl], table.span[lvl], hscale=hscale,
+                 out=stack[lvl])
+    return stack
+
+
+def apart_stack(src: torch.Tensor, octave: int, dims, levels: int,
+                gauss: GaussInfo, gauss_mode: GaussMode, sift_mode: SiftMode,
+                upscale_factor: float, image: torch.Tensor | None = None,
+                scaling_mode: ScalingMode = ScalingMode.SCALE_DEFAULT
+                ) -> torch.Tensor:
+    """The (L, H, W) stack of an octave that :func:`levels_apart` names.
+    ``src`` is the [0, 1] input for octave 0 and level L-3 of the octave
+    before otherwise; ``image`` is the input (direct scaling).  The input
+    is resampled once for all of octave 0's levels."""
+    w, h = dims[octave]
+    if octave == 0:
+        base = resample_input(
+            src, h, w, apart_shift(gauss_mode, sift_mode,
+                                   upscale_factor)).contiguous()
+        return levels_from(base, gauss.abs_o0, levels, 0, 255.0)
+    lvl0 = octave_level0(src, octave, dims, gauss, sift_mode, upscale_factor,
+                         image, scaling_mode)
+    stack = levels_from(lvl0, gauss.abs_oN, levels, 1, 1.0)
+    stack[0].copy_(lvl0)
+    return stack
 
 
 def chain_filters(gauss: GaussInfo, levels: int):
@@ -165,21 +238,30 @@ def build_octave(src: torch.Tensor, octave: int, dims, levels: int,
 def octave_outputs(src: torch.Tensor, octave: int, dims, levels: int,
                    gauss: GaussInfo, sift_mode: SiftMode,
                    upscale_factor: float, full_stack: bool,
-                   need_field: bool = True):
+                   need_field: bool = True,
+                   gauss_mode: GaussMode = GaussMode.VLFEAT_COMPUTE,
+                   scaling_mode: ScalingMode = ScalingMode.SCALE_DEFAULT,
+                   image: torch.Tensor | None = None):
     """Scale space, DoG and gradient field of one octave, the counterpart
     of one octave of popsift_tpu's ``build_pyramid_dogs_fields``.  ``src``
     is the [0, 1] input image for octave 0 and level L-3 of the octave
-    before otherwise.  Returns (stack, down, dog, field): ``stack`` is
+    before otherwise; ``image`` is the input image, which direct scaling
+    reads at every octave.  Returns (stack, down, dog, field): ``stack`` is
     None on a chain octave when ``full_stack`` is False (the loop
     descriptors never read it), and ``down`` is level L-3, the next
-    octave's source.  A chain octave always has K7's field; a per-level
-    octave has one only with ``need_field`` (nothing reads it on the
-    stack-kernel path), and None otherwise: from K1's chain entry where
-    the octave ``chain_fits``, else from K2."""
+    octave's source.  A chain octave always has K7's field; another octave
+    has one only with ``need_field`` (nothing reads it on the stack-kernel
+    path), and None otherwise: from K1's chain entry where the octave
+    ``chain_fits``, else from K2."""
     w, h = dims[octave]
     L = levels + 3
+    if levels_apart(gauss_mode, octave):
+        stack = apart_stack(src, octave, dims, levels, gauss, gauss_mode,
+                            sift_mode, upscale_factor, image, scaling_mode)
+        field = grad_field(stack) if need_field else None
+        return stack, stack[L - PREV_LEVEL], stack[1:] - stack[:-1], field
     lvl0 = octave_level0(src, octave, dims, gauss, sift_mode,
-                         upscale_factor)
+                         upscale_factor, image, scaling_mode)
     filters, spans = chain_filters(gauss, levels)
     if chain_eligible(h, w, spans):
         stack, dog, field = octave_chain(lvl0, filters, spans,

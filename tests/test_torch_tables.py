@@ -304,14 +304,30 @@ def test_ctypes_signatures_match_the_c_entries():
     lambda c: c.set_gauss_mode("vlfeat-direct"),
     lambda c: c.set_scaling_mode(tcfg.ScalingMode.SCALE_DIRECT),
     lambda c: c.set_filter_max_extrema(100),
+    lambda c: c.set_log_mode(tcfg.LogMode.ALL),
 ])
 def test_unimplemented_modes_raise(mutate):
+    """Extraction raises NotImplementedError on exactly the settings that
+    unsupported_modes names.  The first six, once refused, are modes of
+    the JAX package that the port now runs: they extract on the CPU, from
+    extract_features and through the pipeline's job.  log_mode=ALL (the
+    JAX package's dump tree, not ported) raises from both."""
     cfg = tcfg.Config()
     mutate(cfg)
     img = np.zeros((48, 64), np.uint8)
+    missing = tcfg.unsupported_modes(cfg)
+    if cfg.log_mode != tcfg.LogMode.ALL:
+        assert missing == []
+        feats = text.extract_features(img, cfg, device="cpu")
+        assert isinstance(feats, popsift_torch.FeaturesHost)
+        with popsift_torch.PopSift(cfg, device="cpu") as ps:
+            got = ps.enqueue(64, 48, img).get()
+        assert got.get_feature_count() == feats.get_feature_count()
+        return
+    assert missing == ["log_mode=all"]
     with pytest.raises(NotImplementedError) as err:
         text.extract_features(img, cfg, device="cpu")
-    assert tcfg.unsupported_modes(cfg)[0] in str(err.value)
+    assert missing[0] in str(err.value)
     # the pipeline reports the same error through the job
     with popsift_torch.PopSift(cfg, device="cpu") as ps:
         with pytest.raises(NotImplementedError):
