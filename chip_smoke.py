@@ -108,11 +108,36 @@ JAX nor popsift_tpu.  In order it:
    grid filter also triggers on every
    scene, keeps what ops/filtergrid.py keeps on the CPU from the card's
    own unfiltered extrema, and its features are a subset of phase 3's;
-10. prints the kernel table as one JSON line (each row's launches are
+10. drives the command-line tools and diagnostics: (a) writes the four
+   scenes as P5 PGMs into a temporary directory and scene 0 also as P2
+   and P6, each read back equal; (b) runs popsift_torch.cli.demo's main
+   in this process on that directory with the launch counts reset (the
+   default path's kernels launched, gather_windows and grad_field not;
+   the stderr counts DEFAULT_FEATURES; output-features.txt byte-equal to
+   FeaturesHost.print of phase 3's scene 3); (c) runs the demo as a child
+   process on its default device with --print-dev-info, --print-time-info
+   and --print-gauss-tables (rc 0, the same counts, the card's name, the
+   Gauss tables of format_gauss_tables, no JAX or popsift_tpu module
+   imported in the child; prints the enqueue and drain times); (d) runs
+   popsift_torch.cli.match on scene 0 and its rotation (its lines equal
+   match_and_print in this process, its accepted count phase 8's); (e)
+   runs --log on tests/data/scenes/street.pgm (the seven directories, a
+   file per level and DoG of each kind, every raw dump bit-equal to the
+   pyramid-returning route on the card, dir-desc's rows the job's
+   descriptors, the features bit-equal to a run without --log, the raw
+   dumps within LOG_CPU_ATOL of the same dump made on the CPU); (f) with
+   the host trace on, prints each host span's ms per image and share of
+   the wall over three passes of the scenes (features DEFAULT_FEATURES),
+   the wall with the trace on and off, and per scope its host ms and the
+   device ms of what it launched, from a profile of extract_features in
+   which every scope must appear; (g) holds the repeatability of
+   tests/test_repeatability.py's scene, extracted on the card, to that
+   test's thresholds, and prints the same numbers for scene 0 at 1080p;
+11. prints the kernel table as one JSON line (each row's launches are
    those of its home path, the first that launches it; K8's, on no path,
    are its counts summed, each required to be 0; each row also holds its
-   launches on every path, matching mode included) and, last, the device
-   line, after checking that no JAX module was imported.
+   launches on every path, matching mode and the CLI included) and, last,
+   the device line, after checking that no JAX module was imported.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -121,6 +146,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import os
 import re
@@ -2277,6 +2303,480 @@ def run_modes(torch, pt, scenes, loop_feats) -> tuple[dict, list]:
     return stats, unrecorded
 
 
+# Phase 10, the command-line tools and diagnostics.  The --log tree of a
+# 1080p frame would be about 0.6 GB, so it is written for a 640x480 photo.
+LOG_SCENE = "street.pgm"
+# the card's raw dumps against the same dump made on the CPU (0..255)
+LOG_CPU_ATOL = 1e-3
+PLATFORM_SWITCH = "POPSIFT_TPU_PLATFORM"
+HOST_SPLIT_PASSES = 3
+# tests/test_repeatability.py's thresholds: (repeatability, matching
+# score) above which each warp of its 160x200 scene must stay
+REPEAT_THRESHOLDS = {"identity": (0.99, 0.99), "translation": (0.85, 0.85),
+                     "rotation": (0.75, 0.75), "scale": (0.75, None)}
+# the child's wrapper around the demo's main: it also reports the modules
+# of JAX and popsift_tpu that were imported, and fails if there are any
+CHILD_DEMO = """import sys
+from popsift_torch.cli import demo
+rc = demo.main(sys.argv[1:])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "popsift_tpu")))
+print("imported:", bad)
+sys.exit(rc or (3 if bad else 0))
+"""
+
+
+def repeat_scene() -> np.ndarray:
+    """tests/test_repeatability.py's 160x200 scene of 25 Gaussian blobs."""
+    rng = np.random.default_rng(3)
+    h, w = 160, 200
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.zeros((h, w), np.float32)
+    for _ in range(25):
+        cx = rng.uniform(20, w - 20)
+        cy = rng.uniform(20, h - 20)
+        s = rng.uniform(2.0, 6.0)
+        img += rng.uniform(0.3, 1.0) * np.exp(
+            -(((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * s * s))) \
+            * rng.choice([-1.0, 1.0])
+    img = img - img.min()
+    img = img / img.max()
+    return (img * 255).astype(np.uint8)
+
+
+def affine_cases(w: int, h: int) -> dict:
+    """tests/test_repeatability.py's four warps, the rotation about the
+    image's centre."""
+    th = np.deg2rad(12)
+    rot = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    c = np.array([w / 2.0, h / 2.0])
+    return {"identity": (np.eye(2), np.zeros(2)),
+            "translation": (np.eye(2), np.array([7.0, -4.0])),
+            "rotation": (rot, c - rot @ c),
+            "scale": (np.eye(2) * 1.15, np.zeros(2))}
+
+
+def repeatability(pt, img: np.ndarray) -> dict:
+    """evaluate_pair of ``img`` and each of its warps, extracted through
+    PopSift on the card."""
+    from popsift_torch.eval.repeatability import evaluate_pair, warp_affine
+    h, w = img.shape
+    out = {}
+    with pt.PopSift(pt.Config()) as ps:
+        fa = ps.enqueue(w, h, img).get()
+        for name, (A, t) in affine_cases(w, h).items():
+            warped = warp_affine(img, A, t)
+            fb = ps.enqueue(w, h, warped).get()
+            out[name] = evaluate_pair(fa, fb, A, t, warped.shape)
+    return out
+
+
+def printed(feats) -> str:
+    buf = io.StringIO()
+    feats.print(buf)
+    return buf.getvalue()
+
+
+def demo_counts(err: str) -> list:
+    """(features, descriptors) of each job from the demo's stderr."""
+    return [(int(m.group(1)), int(m.group(2))) for m in re.finditer(
+        r"Number of feature points: (\d+) number of feature descriptors: "
+        r"(\d+)", err)]
+
+
+def write_cli_inputs(tmp: Path, scenes) -> tuple[Path, Path]:
+    """(a) The four scenes as P5 PGMs in one directory (scene 3 sorts
+    last), scene 0 as P2 (with a comment) and as P6 (equal channels, so
+    its grey value is exact) in another, each read back."""
+    from popsift_torch.io.pgm import read_pgm as port_read_pgm
+    from popsift_torch.io.pgm import write_pgm
+    scene_dir, fmt_dir = tmp / "scenes", tmp / "formats"
+    scene_dir.mkdir()
+    fmt_dir.mkdir()
+    files = []
+    for i, s in enumerate(scenes):
+        p = scene_dir / f"scene-{i}.pgm"
+        write_pgm(str(p), s)
+        files.append((p, s))
+    s0 = scenes[0]
+    h, w = s0.shape
+    p2 = fmt_dir / "scene-0-p2.pgm"
+    p2.write_bytes(f"P2\n# scene 0\n{w} {h}\n255\n".encode()
+                   + "\n".join(" ".join(map(str, r))
+                               for r in s0.tolist()).encode() + b"\n")
+    p6 = fmt_dir / "scene-0-p6.ppm"
+    p6.write_bytes(f"P6\n{w} {h}\n255\n".encode()
+                   + np.repeat(s0[..., None], 3, axis=2).tobytes())
+    files += [(p2, s0), (p6, s0)]
+    t0 = time.perf_counter()
+    for p, s in files:
+        require(np.array_equal(port_read_pgm(str(p)), s),
+                f"{p.name} does not read back as written")
+    print(f"  (a) {len(scenes)} scenes written as P5 and scene 0 as P2 and "
+          f"P6; each read back equal ({time.perf_counter() - t0:.3f} s for "
+          f"the {len(files)} reads)", flush=True)
+    return scene_dir, fmt_dir
+
+
+def run_demo(argv, cwd: Path) -> tuple[int, str]:
+    """The demo's main in this process, in ``cwd``; (rc, stderr)."""
+    from popsift_torch.cli import demo
+    err = io.StringIO()
+    with contextlib.chdir(cwd), contextlib.redirect_stderr(err):
+        rc = demo.main(argv)
+    return rc, err.getvalue()
+
+
+def check_demo_child(torch, scene_dir: Path, tmp: Path) -> dict:
+    """(c) The demo as a child process on its default device."""
+    from popsift_torch.gauss import build_gauss_info, format_gauss_tables
+    import popsift_torch as pt
+    env = dict(os.environ)
+    env.pop(PLATFORM_SWITCH, None)
+    env["PYTHONPATH"] = str(HERE) + os.pathsep + env.get("PYTHONPATH", "")
+    cwd = tmp / "child"
+    cwd.mkdir()
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", CHILD_DEMO, "-i", str(scene_dir),
+         "--print-dev-info", "--print-time-info", "--print-gauss-tables"],
+        capture_output=True, text=True, cwd=cwd, env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    require(r.returncode == 0, f"the demo's child exited {r.returncode}:\n"
+            f"{r.stderr[-3000:]}")
+    got = tuple(n for n, _ in demo_counts(r.stderr))
+    require(got == DEFAULT_FEATURES, f"the child demo's features {got}")
+    name = torch.cuda.get_device_name(0)
+    require(name in r.stdout, f"the card's name {name!r} not printed")
+    tables = format_gauss_tables(build_gauss_info(pt.Config()))
+    require(tables in r.stdout, "the child's Gauss tables differ")
+    require("imported: []" in r.stdout, "the child imported JAX: "
+            + r.stdout.splitlines()[-1])
+    times = {ln.split(":")[0]: float(ln.split(":")[1].split()[0])
+             for ln in r.stderr.splitlines()
+             if ln.startswith(("Enqueue", "Extraction"))}
+    require(len(times) == 2, "no enqueue/drain times printed")
+    dev_line = next(ln for ln in r.stdout.splitlines() if name in ln)
+    print(f"  (c) python -m popsift_torch.cli.demo (through a -c wrapper) on "
+          f"its default device: rc 0, features {got}, {dev_line.strip()!r}, "
+          f"the Gauss tables equal format_gauss_tables, no JAX or "
+          f"popsift_tpu module imported; " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in times.items())
+          + f" for {len(got)} images; child wall {wall:.3f} s",
+          flush=True)
+    return dict(features=list(got), child_wall_s=wall,
+                enqueue_ms=times["Enqueue (load + upload dispatch)"],
+                drain_ms=times["Extraction (drain)"])
+
+
+def check_match_cli(pt, scenes, match_stats, tmp: Path) -> dict:
+    """(d) popsift_torch.cli.match on scene 0 and its 90-degree rotation
+    (phase 8's pair) against match_and_print in this process."""
+    from popsift_torch.cli import match
+    from popsift_torch.io.pgm import write_pgm
+    a = scenes[0]
+    b = np.ascontiguousarray(np.rot90(a))
+    pa, pb = tmp / "match-left.pgm", tmp / "match-right.pgm"
+    write_pgm(str(pa), a)
+    write_pgm(str(pb), b)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = match.main(["-l", str(pa), "-r", str(pb)])
+    require(rc == 0, f"popsift-match exited {rc}")
+    lines = out.getvalue().splitlines()
+    with pt.PopSift(pt.Config(), mode=pt.ProcessingMode.MATCHING) as ps:
+        left = ps.enqueue(a.shape[1], a.shape[0], a).get_dev()
+        right = ps.enqueue(b.shape[1], b.shape[0], b).get_dev()
+    ref = io.StringIO()
+    left.match_and_print(right, ref)
+    require(lines[4:] == ref.getvalue().splitlines(),
+            "popsift-match's lines differ from match_and_print's")
+    require(lines[:2] == [
+        f"Number of features:    {left.get_feature_count()}",
+        f"Number of descriptors: {left.get_descriptor_count()}"],
+        "popsift-match's counts differ")
+    accepted = sum(ln.startswith("accept") for ln in lines[4:])
+    want = match_stats["pairs"]["scene 0->scene 0 rot90"]["accepted"]
+    require(accepted == want, f"popsift-match accepted {accepted}, phase 8 "
+            f"{want}")
+    print(f"  (d) popsift-match scene 0 -> its rotation: rc 0, "
+          f"{len(lines) - 4} accept/reject lines equal to match_and_print "
+          f"in this process, {accepted} accepted as in phase 8", flush=True)
+    return dict(lines=len(lines) - 4, accepted=accepted)
+
+
+def check_log_tree(pt, tmp: Path) -> dict:
+    """(e) --log on a 640x480 photograph: the tree, its raw dumps against
+    the pyramid route on the card bit for bit and against the CPU's dump,
+    and the job's features unchanged by --log."""
+    import types
+    from popsift_torch.debugdump import DIRS, dump_all
+    from popsift_torch.extract import extract_features, make_plan
+
+    path = HERE / "tests" / "data" / "scenes" / LOG_SCENE
+    img = read_pgm(path).copy()
+    h, w = img.shape
+    cwd = tmp / "log"
+    cwd.mkdir()
+    rc, err = run_demo(["-i", str(path), "--log"], cwd)
+    require(rc == 0, f"the demo with --log exited {rc}")
+    tree = {p.relative_to(cwd).as_posix(): p for p in cwd.rglob("*")
+            if p.is_file()}
+    require({n.split("/")[0] for n in tree if "/" in n} == set(DIRS),
+            f"the --log tree's directories {sorted(tree)[:8]}")
+    cfg = pt.Config()
+    plan = make_plan(cfg, w, h)
+    L = plan.levels + 3
+    for d, per_octave in (("dir-octave", L), ("dir-octave-dump", L),
+                          ("dir-dog", L - 1), ("dir-dog-txt", L - 1),
+                          ("dir-dog-dump", L - 1)):
+        n = sum(name.startswith(d + "/") for name in tree)
+        require(n == plan.octaves * per_octave, f"{d} holds {n} files")
+    with pt.PopSift(cfg) as ps:
+        feats = ps.enqueue(w, h, img).get()
+    route, stacks, dogs = extract_features(img, cfg, "cuda",
+                                           return_pyramid=True)
+    require(features_equal(route, feats), "the pyramid route's features "
+            "differ from the default path's")
+    n_dumps = 0
+    for prefix, sub, arrays in (("", "dir-octave-dump", stacks),
+                                ("d-", "dir-dog-dump", dogs)):
+        for o, t in enumerate(arrays):
+            arr = t.cpu().numpy()
+            for lvl in range(arr.shape[0]):
+                raw = tree[f"{sub}/{prefix}pyramid-o-{o}-l-{lvl}.dump"]
+                require(raw.read_bytes() == arr[lvl].tobytes(),
+                        f"{raw.name} differs from the pyramid route's")
+                n_dumps += 1
+    counts = demo_counts(err)
+    rows = len(tree["dir-desc/desc-pyramid.txt"].read_text().splitlines())
+    require(len(counts) == 1 and rows == counts[0][1]
+            == feats.get_descriptor_count(),
+            f"dir-desc holds {rows} rows, the job {counts}")
+    require(tree["output-features.txt"].read_text() == printed(feats),
+            "the --log run's output-features.txt differs from the run "
+            "without --log")
+    logged = pt.Config()
+    logged.set_log_mode(pt.LogMode.ALL)
+    (tmp / "log2").mkdir()
+    with contextlib.chdir(tmp / "log2"), pt.PopSift(logged) as ps:
+        got = ps.enqueue(w, h, img).get()
+    require(features_equal(got, feats), "log_mode=ALL moved the features")
+    cpu_dir = tmp / "log-cpu"
+    dump_all(logged, types.SimpleNamespace(_w=w, _h=h, _image_data=img),
+             "pyramid", base_dir=str(cpu_dir), device="cpu")
+    worst = 0.0
+    for name, p in tree.items():
+        if name.endswith(".dump"):
+            a = np.fromfile(p, np.float32)
+            b = np.fromfile(cpu_dir / name, np.float32)
+            require(a.shape == b.shape, f"{name}: CPU dump of another size")
+            worst = max(worst, float(np.abs(a - b).max()))
+    require(worst <= LOG_CPU_ATOL, f"the card's dumps differ from the CPU's "
+            f"by {worst}")
+    size = sum(p.stat().st_size for p in tree.values())
+    print(f"  (e) --log on {LOG_SCENE} ({w}x{h}): {len(tree)} files "
+          f"({size / 2 ** 20:.1f} MiB) in the seven directories, "
+          f"{plan.octaves} octaves x {L} levels and {L - 1} DoGs; {n_dumps} "
+          f"raw dumps bit-equal to the pyramid route on the card; dir-desc "
+          f"{rows} rows = the job's descriptors; features bit-equal to the "
+          f"run without --log; card against CPU dumps: largest difference "
+          f"{worst:.6g} (within {LOG_CPU_ATOL})", flush=True)
+    return dict(files=len(tree), mib=size / 2 ** 20, raw_dumps=n_dumps,
+                desc_rows=rows, cpu_max_abs=worst)
+
+
+def traced_passes(torch, pt, scenes, on: bool) -> tuple[float, dict]:
+    """HOST_SPLIT_PASSES passes of the scenes through PopSift(Config())
+    with the host trace ``on`` or off: ms per image and the snapshot."""
+    from popsift_torch import tracing
+    h, w = scenes[0].shape
+    tracing.HOSTTRACE = on
+    try:
+        with pt.PopSift(pt.Config()) as ps:
+            ps.enqueue(w, h, scenes[-1]).get()
+            torch.cuda.synchronize()
+            tracing._trace_events.clear()
+            t0 = time.perf_counter()
+            for _ in range(HOST_SPLIT_PASSES):
+                jobs = [ps.enqueue(w, h, s) for s in scenes]
+                got = tuple(j.get().get_feature_count() for j in jobs)
+                require(got == DEFAULT_FEATURES, f"features {got} with the "
+                        f"host trace {'on' if on else 'off'}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            snap = tracing.host_trace_snapshot(clear=True)
+    finally:
+        tracing.HOSTTRACE = False
+        tracing._trace_events.clear()
+    return wall * 1e3 / (HOST_SPLIT_PASSES * len(scenes)), snap
+
+
+def scope_split(torch, pt, scenes, tmp: Path) -> dict:
+    """Per scope: its host ms and the device ms of the kernels and copies
+    launched inside it, per image, from a Chrome trace of
+    extract_features over the scenes on this thread (only this thread
+    extracts while it runs, so a launch belongs to the scope whose range
+    holds its runtime call)."""
+    from torch.profiler import ProfilerActivity, profile
+    from popsift_torch.extract import extract_features
+    from popsift_torch.tracing import SCOPES
+    extract_features(scenes[-1], pt.Config(), "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for s in scenes:
+            extract_features(s, pt.Config(), "cuda")
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    path = tmp / "scopes.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") in SCOPES]
+    launch_at = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    n = len(scenes)
+    host = {s: 0.0 for s in SCOPES}
+    device = {s: 0.0 for s in SCOPES + ("outside",)}
+    for t0, t1, name in ranges:
+        host[name] += (t1 - t0) / 1e3 / n
+    starts = np.array([r[0] for r in ranges])
+    order = np.argsort(starts)
+    starts = starts[order]
+    ranges = [ranges[i] for i in order]
+    n_dev = 0
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        n_dev += 1
+        at = launch_at.get(e.get("args", {}).get("correlation"))
+        where = "outside"
+        if at is not None:
+            i = int(np.searchsorted(starts, at, side="right")) - 1
+            if i >= 0 and ranges[i][0] <= at <= ranges[i][1]:
+                where = ranges[i][2]
+        device[where] += e["dur"] / 1e3 / n
+    missing = [s for s in SCOPES if not any(r[2] == s for r in ranges)]
+    require(not missing, f"scopes missing from the profile: {missing}")
+    return dict(host_ms=host, device_ms=device if n_dev else None,
+                device_records=n_dev)
+
+
+def host_split(torch, pt, scenes, tmp: Path, smi: str) -> dict:
+    """(f) The host's time of the default path by span and by scope."""
+    walls = {False: [], True: []}
+    snap = wall_on = None
+    for on in (False, True, False, True):
+        ms, s = traced_passes(torch, pt, scenes, on)
+        walls[on].append(ms)
+        if on:       # the spans of the last traced run, and its wall
+            snap, wall_on = s, ms
+    n = HOST_SPLIT_PASSES * len(scenes)
+    print(f"  (f) host spans, PopSift(Config()), {HOST_SPLIT_PASSES} passes "
+          f"of the 4 scenes with POPSIFT_TPU_HOSTTRACE on ({smi}); features "
+          f"{DEFAULT_FEATURES} on every pass:", flush=True)
+    spans = {}
+    for name in sorted(snap):
+        count, total = snap[name]
+        if name.startswith("#"):
+            spans[name] = total / n
+            print(f"      {name:14s} {total / n:10.1f} per image", flush=True)
+            continue
+        spans[name] = total / n
+        print(f"      {name:14s} {total / n:8.3f} ms/image ({count} spans), "
+              f"{100 * total / n / wall_on:5.1f}% of the wall", flush=True)
+    groups = {g: sum(v for k, v in spans.items() if k.startswith(g + "."))
+              for g in ("stage1", "stage2")}
+    covered = spans.get("extract", 0.0)
+    print(f"      stage 1 {groups['stage1']:.3f} ms, stage 2 "
+          f"{groups['stage2']:.3f} ms per image; the extract spans cover "
+          f"{100 * covered / wall_on:.1f}% of the wall "
+          f"({wall_on:.3f} ms/image with tracing on; a job span runs from "
+          f"enqueue, so the jobs queued behind one overlap)", flush=True)
+    print(f"      wall with the host trace off {walls[False]} ms/image, on "
+          f"{walls[True]} ms/image (runs off, on, off, on)", flush=True)
+    scopes = scope_split(torch, pt, scenes, tmp)
+    dev = scopes["device_ms"]
+    print(f"      per scope, extract_features profiled on 4 scenes ({smi}): "
+          f"host ms / device ms per image", flush=True)
+    for name in scopes["host_ms"]:
+        print(f"      {name:12s} host {scopes['host_ms'][name]:8.3f}  device "
+              f"{fmt_ms(dev and dev[name])}", flush=True)
+    if dev:
+        print(f"      outside the scopes: device {dev['outside']:.3f} ms "
+              f"per image ({scopes['device_records']} device records)",
+              flush=True)
+    return dict(spans_ms_per_image=spans, extract_share=covered / wall_on,
+                traced_wall_ms=wall_on, wall_off_ms=walls[False],
+                wall_on_ms=walls[True], **scopes)
+
+
+def check_repeatability(pt, scenes, smi: str) -> dict:
+    """(g) Repeatability on the card: the CPU test's scene held to its
+    thresholds, and scene 0 at 1080p printed."""
+    small = repeatability(pt, repeat_scene())
+    for name, (rep, score) in REPEAT_THRESHOLDS.items():
+        res = small[name]
+        require(res.repeatability > rep and (score is None
+                                             or res.matching_score > score),
+                f"repeatability {name}: {res}")
+    require(small["identity"].n_ref > 10, "too few identity keypoints")
+    big = repeatability(pt, scenes[0])
+
+    def fmt(res):
+        return ", ".join(f"{k} {v.repeatability:.4f}/{v.matching_score:.4f}"
+                         for k, v in res.items())
+    print(f"  (g) repeatability/matching score on the card ({smi}): the "
+          f"test's 200x160 scene {fmt(small)} (thresholds "
+          f"{REPEAT_THRESHOLDS}); scene 0 at 1080p {fmt(big)}", flush=True)
+    import dataclasses
+    return {k: {n: dataclasses.asdict(v) for n, v in r.items()}
+            for k, r in (("test_scene", small), ("scene0_1080p", big))}
+
+
+def run_cli(torch, pt, scenes, loop_feats, match_stats, smi: str) -> dict:
+    """Phase 10: the command-line tools and diagnostics on the card."""
+    import tempfile
+    from popsift_torch import kernels
+    print(f"phase 10: the CLI, I/O and diagnostics ({smi})", flush=True)
+    with tempfile.TemporaryDirectory(prefix="popsift_cli_") as name:
+        tmp = Path(name)
+        scene_dir, _ = write_cli_inputs(tmp, scenes)
+
+        # (b) the demo in this process
+        out = tmp / "demo"
+        out.mkdir()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        rc, err = run_demo(["-i", str(scene_dir)], out)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        require(rc == 0, f"the demo exited {rc}")
+        for k in LOOP_PATH:
+            require(counts[k] > 0, f"kernel {k} was not launched by the demo")
+        for k in NOT_ON_ANY_PATH:
+            require(counts[k] == 0, f"kernel {k} was launched by the demo")
+        got = tuple(n for n, _ in demo_counts(err))
+        require(got == DEFAULT_FEATURES, f"the demo's features {got}")
+        require((out / "output-features.txt").read_text()
+                == printed(loop_feats[-1]),
+                "output-features.txt differs from phase 3's scene 3")
+        print(f"  (b) popsift_torch.cli.demo main() on the directory: "
+              f"launches {json.dumps(counts)}; features {got}; "
+              f"output-features.txt byte-equal to FeaturesHost.print of "
+              f"phase 3's scene 3", flush=True)
+        stats = dict(counts=counts, features=list(got))
+        stats["child"] = check_demo_child(torch, scene_dir, tmp)
+        stats["match"] = check_match_cli(pt, scenes, match_stats, tmp)
+        stats["log"] = check_log_tree(pt, tmp)
+        stats["host"] = host_split(torch, pt, scenes, tmp, smi)
+    stats["repeatability"] = check_repeatability(pt, scenes, smi)
+    return stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2291,8 +2791,10 @@ def main() -> int:
                     for m in sys.modules), "JAX was imported")
     from popsift_torch.kernels import _lib
 
-    # phases 2-4 run with the stack kernels off, whatever the caller set
+    # phases 2-4 run with the stack kernels off, and the CLI on the card,
+    # whatever the caller set
     os.environ.pop(STACK_SWITCH, None)
+    os.environ.pop(PLATFORM_SWITCH, None)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = smi_line()
@@ -2409,13 +2911,19 @@ def main() -> int:
             by_path[home] if home
             else sum(v for p, v in by_path.items() if p != "matching"))
 
+    cli_stats = run_cli(torch, pt, scenes, loop_feats, match_stats, smi)
+    for name in table.rows:
+        table.rows[name]["launches_by_path"]["cli"] = \
+            cli_stats["counts"][name]
+
     require(not any(m == "jax" or m.startswith(("jax.", "popsift_tpu"))
                     for m in sys.modules), "JAX was imported")
-    print("phase 10: the kernel table", flush=True)
+    print("phase 11: the kernel table", flush=True)
     print(json.dumps({f"{p}_path": st for p, st in stats.items()}),
           flush=True)
     print(json.dumps({"matching": match_stats}), flush=True)
     print(json.dumps({"modes": mode_stats}), flush=True)
+    print(json.dumps({"cli": cli_stats}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": [table.rows[k] for k in _lib.KERNELS]}),
           flush=True)

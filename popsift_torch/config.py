@@ -5,9 +5,8 @@ string parsers, so that a user can switch packages without relearning the
 knobs.  The port keeps its own copy because importing anything from
 ``popsift_tpu`` imports JAX.
 
-Every extraction mode of the JAX package is implemented;
-:func:`unsupported_modes` names the settings that make extraction raise
-``NotImplementedError`` (the ``log_mode=ALL`` dump tree).
+Every mode of the JAX package is implemented, the ``log_mode=ALL`` dump
+tree included (:mod:`popsift_torch.debugdump`).
 """
 
 from __future__ import annotations
@@ -297,24 +296,10 @@ class Config:
         return dataclasses.replace(self)
 
 
-def unsupported_modes(config: Config) -> list[str]:
-    """Settings this package does not implement yet, by name: the
-    ``log_mode=ALL`` dump tree (popsift_tpu/debugdump.py)."""
-    out = []
-    if config.log_mode == LogMode.ALL:
-        out.append("log_mode=all")
-    return out
-
-
 def check_supported(config: Config) -> None:
-    """Raise on a setting this package does not implement, and, as the JAX
-    package's pyramid does (popsift_tpu/ops/pyramid.py:236-240), on a
-    Fixed9/Fixed15 configuration without levels + 3 == 6."""
-    missing = unsupported_modes(config)
-    if missing:
-        raise NotImplementedError(
-            "popsift_torch does not implement " + ", ".join(missing)
-            + " yet; use popsift_tpu for these modes")
+    """Raise, as the JAX package's pyramid does (popsift_tpu/ops/
+    pyramid.py:236-240), on a Fixed9/Fixed15 configuration without
+    levels + 3 == 6."""
     if (config.gauss_mode in (GaussMode.FIXED9, GaussMode.FIXED15)
             and max(2, config.levels) + 3 != 6):
         raise ValueError(

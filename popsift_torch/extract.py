@@ -8,7 +8,11 @@ the grid filter over all of them (:func:`filter_extrema`), then
 orientation and descriptors octave by octave (:func:`octave_features`),
 reading the candidate, extremum and orientation counts back to the host
 between stages (shapes are dynamic on the GPU, so there are no compile
-buckets).
+buckets).  Each phase runs in a :func:`~popsift_torch.tracing.scope`
+(pyramid, detect, filter, orientation, descriptors, download, assemble),
+and with ``POPSIFT_TPU_HOSTTRACE=1`` the extraction, each octave's two
+stages, the filter and the assembly are host spans, with the counts read
+back per image as series.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from .ops import extrema as ops_ext
 from .ops import filtergrid as ops_fg
 from .ops import orientation as ops_ori
 from .ops import pyramid as ops_pyr
+from .tracing import host_trace, scope, span_key
 
 
 def _round_up(x: int, m: int) -> int:
@@ -240,25 +245,31 @@ def octave_features(plan: ExtractorPlan, o: int, stack, ext,
     loop descriptors read ``stack`` (K10, K11); otherwise they read
     ``field``, computed from ``stack`` (K2) unless it is given.  ``consts``
     is needed by the NoTile and IGrid modes only."""
-    if not stack_kernels and field is None:
-        field = grad_field(stack)
-    num_ori, oris = ops_ori.assign_orientations(
-        field, ext.xpos, ext.ypos, ext.lpos, ext.sigma,
-        stack=stack if stack_kernels else None)
-    feat, ang, num_eff = descriptor_rows(plan, o, num_ori, oris)
-    desc = dispatch_descriptors(plan, consts, stack, field, ext.xpos[feat],
-                                ext.ypos[feat], ext.lpos[feat],
-                                ext.sigma[feat], ang, stack_kernels)
-    if plan.norm_mode == NormMode.ROOT_SIFT:
-        desc = ops_desc.normalize_rootsift(desc, plan.norm_multi)
-    else:
-        desc = ops_desc.normalize_l2(desc, plan.norm_multi)
-    return dict(x=ext.xpos.cpu().numpy(), y=ext.ypos.cpu().numpy(),
-                sigma=ext.sigma.cpu().numpy(), num_ori=num_eff.cpu().numpy(),
-                orientations=oris.cpu().numpy(),
-                desc=(quantize_descs_dev if want_dev else quantize_descs)(
-                    desc, desc_transfer, plan.norm_multi),
-                overflow=ext.overflow)
+    dev = ext.xpos.device
+    with scope("orientation", dev):
+        if not stack_kernels and field is None:
+            field = grad_field(stack)
+        num_ori, oris = ops_ori.assign_orientations(
+            field, ext.xpos, ext.ypos, ext.lpos, ext.sigma,
+            stack=stack if stack_kernels else None)
+        feat, ang, num_eff = descriptor_rows(plan, o, num_ori, oris)
+    with scope("descriptors", dev):
+        desc = dispatch_descriptors(plan, consts, stack, field,
+                                    ext.xpos[feat], ext.ypos[feat],
+                                    ext.lpos[feat], ext.sigma[feat], ang,
+                                    stack_kernels)
+        if plan.norm_mode == NormMode.ROOT_SIFT:
+            desc = ops_desc.normalize_rootsift(desc, plan.norm_multi)
+        else:
+            desc = ops_desc.normalize_l2(desc, plan.norm_multi)
+    with scope("download", dev):
+        return dict(x=ext.xpos.cpu().numpy(), y=ext.ypos.cpu().numpy(),
+                    sigma=ext.sigma.cpu().numpy(),
+                    num_ori=num_eff.cpu().numpy(),
+                    orientations=oris.cpu().numpy(),
+                    desc=(quantize_descs_dev if want_dev else quantize_descs)(
+                        desc, desc_transfer, plan.norm_multi),
+                    overflow=ext.overflow)
 
 
 def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
@@ -276,21 +287,36 @@ def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
 
 
 def octave_keypoints_all(plan: ExtractorPlan, gauss, img: torch.Tensor,
-                         full_stacks: bool, need_field: bool) -> list:
+                         full_stacks: bool, need_field: bool,
+                         dogs: list | None = None) -> list:
     """Stage 1 of every octave (popsift_tpu staged.py:158-245): the
     pyramid, DoG and field, then detection and refinement.  ``img`` is
     the [0, 1] input on the device.  Returns per octave (stack, field,
-    Extrema); each DoG is dropped once its keypoints are found."""
+    Extrema); each DoG is dropped once its keypoints are found, unless
+    ``dogs`` is a list, which then receives them."""
     out = []
     src = img
+    key = span_key()
+    n_cands = n_ext = 0
     for o in range(plan.octaves):
-        stack, src, dog, field = ops_pyr.octave_outputs(
-            src, o, plan.dims, plan.levels, gauss, plan.sift_mode,
-            plan.upscale_factor, full_stacks, need_field=need_field,
-            gauss_mode=plan.gauss_mode, scaling_mode=plan.scaling_mode,
-            image=img)
-        out.append((stack, field, octave_keypoints(plan, o, dog)[1]))
+        host_trace(f"stage1.o{o}.start", key)
+        with scope("pyramid", img.device):
+            stack, src, dog, field = ops_pyr.octave_outputs(
+                src, o, plan.dims, plan.levels, gauss, plan.sift_mode,
+                plan.upscale_factor, full_stacks, need_field=need_field,
+                gauss_mode=plan.gauss_mode, scaling_mode=plan.scaling_mode,
+                image=img)
+        with scope("detect", img.device):
+            cands, ext = octave_keypoints(plan, o, dog)
+        host_trace(f"stage1.o{o}.end", key)
+        n_cands += cands.count
+        n_ext += ext.count
+        out.append((stack, field, ext))
+        if dogs is not None:
+            dogs.append(dog)
         del dog
+    host_trace("candidates", key, n=n_cands)
+    host_trace("extrema", key, n=n_ext)
     return out
 
 
@@ -307,14 +333,23 @@ def filter_extrema(plan: ExtractorPlan, exts: list) -> list:
 
 
 def extract_features(image, config: Config, device="cuda",
-                     want_dev: bool = False) -> FeaturesHost | FeaturesDev:
+                     want_dev: bool = False, return_pyramid: bool = False
+                     ) -> FeaturesHost | FeaturesDev | tuple:
     """Extract the features of one (H, W) uint8 or [0,1] float image:
     a :class:`FeaturesHost`, or with ``want_dev`` a :class:`FeaturesDev`
     whose descriptors stay on ``device`` (MatchingMode), equal to the
     host descriptors bit for bit.  :func:`stack_kernels_enabled` is read
     once, here, and holds for the whole image.  Every octave's stack and
     field stay on the device until its descriptors are done, since the
-    grid filter needs every octave's extrema first."""
+    grid filter needs every octave's extrema first.
+
+    With ``return_pyramid`` (the ``--log`` dump tree) it returns
+    (features, stacks, dogs): per octave its whole (L+3, H, W) stack and
+    (L+2, H, W) DoG on ``device`` (popsift_tpu extract_pipeline with
+    return_pyramid).  Chain octaves then emit their whole stack, whose
+    features are the same bit for bit."""
+    key = span_key()
+    host_trace("extract.start", key)
     check_supported(config)
     h, w = np.shape(image)
     plan = make_plan(config, w, h)
@@ -325,23 +360,42 @@ def extract_features(image, config: Config, device="cuda",
     # blurred level, and the loop mode's field path only the field, so
     # chain octaves then keep only level L-3 (popsift_tpu staged.py:
     # 180-182); NoTile and IGrid need the two descriptor tables
-    full_stacks = plan.desc_mode != DescMode.LOOP or stack_kernels
+    full_stacks = (plan.desc_mode != DescMode.LOOP or stack_kernels
+                   or return_pyramid)
     consts = (build_const_info(config, device=device)
               if plan.desc_mode in (DescMode.NOTILE, DescMode.IGRID)
               else None)
+    dogs = [] if return_pyramid else None
     stage1 = octave_keypoints_all(plan, gauss, img, full_stacks,
-                                  need_field=not stack_kernels)
-    exts = filter_extrema(plan, [e for _, _, e in stage1])
+                                  need_field=not stack_kernels, dogs=dogs)
+    stacks = [s for s, _, _ in stage1] if return_pyramid else None
+    host_trace("filter.start", key)
+    with scope("filter", img.device):
+        exts = filter_extrema(plan, [e for _, _, e in stage1])
+    host_trace("filter.end", key)
     octaves = []
     for o, ext in enumerate(exts):
         stack, field, _ = stage1[o]
         stage1[o] = None          # free the octave once it is done
+        host_trace(f"stage2.o{o}.start", key)
         octaves.append(octave_features(
             plan, o, stack, ext, config.desc_transfer, field=field,
             consts=consts, stack_kernels=stack_kernels, want_dev=want_dev))
-    if want_dev:
-        return assemble_features_dev(octaves, plan.upscale_factor, device)
-    return assemble_features(octaves, plan.upscale_factor)
+        host_trace(f"stage2.o{o}.end", key)
+    host_trace("descriptors", key,
+               n=sum(int(od["desc"].shape[0]) for od in octaves))
+    host_trace("assemble.start", key)
+    with scope("assemble", img.device):
+        if want_dev:
+            feats = assemble_features_dev(octaves, plan.upscale_factor,
+                                          device)
+        else:
+            feats = assemble_features(octaves, plan.upscale_factor)
+    host_trace("assemble.end", key)
+    host_trace("extract.end", key)
+    if return_pyramid:
+        return feats, stacks, dogs
+    return feats
 
 
 __all__ = ["ExtractorPlan", "make_plan", "normalize_input",

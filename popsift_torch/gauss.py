@@ -144,3 +144,29 @@ def build_gauss_info(config: Config) -> GaussInfo:
                      abs_oN=_build_table(mode, abs_oN_sigmas),
                      dd=_build_table(mode, dd_sigmas),
                      required_filter_stages=stages)
+
+
+def format_gauss_tables(info: GaussInfo, columns: int = 10) -> str:
+    """Debug dump in the spirit of print_gauss_filter_symbol
+    (gauss_filter.cu:24-121); used by --print-gauss-tables."""
+    out = []
+
+    def emit(title: str, table: GaussTable, rows: int) -> None:
+        out.append(title)
+        for lvl in range(rows):
+            spn = int(table.span[lvl])
+            full = spn + spn - 1
+            m = min(spn, columns)
+            taps = " ".join(f"{table.filter[lvl, x]:0.8f}" for x in range(m))
+            tail = " ..." if m < spn else ""
+            out.append(f"      {lvl} {full} {table.sigma[lvl]:2.6f}: "
+                       f"{taps}{tail}")
+        out.append("")
+
+    n = info.required_filter_stages
+    emit("Gauss tables (incremental)", info.inc, n)
+    emit("Gauss tables, absolute filters octave 0", info.abs_o0, n)
+    emit("Gauss tables, absolute filters other octaves", info.abs_oN, n)
+    emit("Level 0-filters for direct downscaling", info.dd,
+         len(info.dd.sigma))
+    return "\n".join(out)

@@ -306,32 +306,24 @@ def test_ctypes_signatures_match_the_c_entries():
     lambda c: c.set_filter_max_extrema(100),
     lambda c: c.set_log_mode(tcfg.LogMode.ALL),
 ])
-def test_unimplemented_modes_raise(mutate):
-    """Extraction raises NotImplementedError on exactly the settings that
-    unsupported_modes names.  The first six, once refused, are modes of
-    the JAX package that the port now runs: they extract on the CPU, from
-    extract_features and through the pipeline's job.  log_mode=ALL (the
-    JAX package's dump tree, not ported) raises from both."""
+def test_unimplemented_modes_raise(mutate, tmp_path, monkeypatch):
+    """Every setting the port once refused now extracts on the CPU, from
+    extract_features and through the pipeline's job: the six modes of the
+    JAX package that the port runs, and log_mode=ALL, whose pipeline job
+    also writes the --log dump tree into the working directory while
+    extract_features writes nothing (popsift_tpu get_extractor)."""
+    monkeypatch.chdir(tmp_path)
     cfg = tcfg.Config()
     mutate(cfg)
     img = np.zeros((48, 64), np.uint8)
-    missing = tcfg.unsupported_modes(cfg)
-    if cfg.log_mode != tcfg.LogMode.ALL:
-        assert missing == []
-        feats = text.extract_features(img, cfg, device="cpu")
-        assert isinstance(feats, popsift_torch.FeaturesHost)
-        with popsift_torch.PopSift(cfg, device="cpu") as ps:
-            got = ps.enqueue(64, 48, img).get()
-        assert got.get_feature_count() == feats.get_feature_count()
-        return
-    assert missing == ["log_mode=all"]
-    with pytest.raises(NotImplementedError) as err:
-        text.extract_features(img, cfg, device="cpu")
-    assert missing[0] in str(err.value)
-    # the pipeline reports the same error through the job
+    feats = text.extract_features(img, cfg, device="cpu")
+    assert isinstance(feats, popsift_torch.FeaturesHost)
+    assert not any(tmp_path.iterdir())
     with popsift_torch.PopSift(cfg, device="cpu") as ps:
-        with pytest.raises(NotImplementedError):
-            ps.enqueue(64, 48, img).get()
+        got = ps.enqueue(64, 48, img).get()
+    assert got.get_feature_count() == feats.get_feature_count()
+    logged = (tmp_path / "dir-desc" / "desc-pyramid.txt").is_file()
+    assert logged == (cfg.log_mode == tcfg.LogMode.ALL)
 
 
 def test_config_parsers_match():
