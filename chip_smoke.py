@@ -133,11 +133,30 @@ JAX nor popsift_tpu.  In order it:
    which every scope must appear; (g) holds the repeatability of
    tests/test_repeatability.py's scene, extracted on the card, to that
    test's thresholds, and prints the same numbers for scene 0 at 1080p;
-11. prints the kernel table as one JSON line (each row's launches are
+11. drives the multi-device SfM front end (popsift_torch.parallel): (a)
+   sfm_frontend_step on one NCCL rank initialised in this process through
+   a FileStore, mesh (1, 1), the four scenes as one batch of a tensor
+   already on the card under key_from_counts of phase 3's features, with
+   the launch counts reset
+   just before (the default path's kernels launched, gather_windows and
+   grad_field not): each image's valid rows bit-equal to phase 3's
+   descriptors, ext_counts DEFAULT_FEATURES, overflow 0, the match counts
+   those of ops/match.py:match_brute_force on the same blocks (rows that
+   differ only at near ties, at most 0.1%); it prints the extrema and
+   overflow under the default key; (b) four gloo ranks sharing the card
+   (parallel/ranks.py:run_ranks), mesh (2, 2), scenes 0-2 padded to four:
+   the ranks bit-equal to each other over two steps, the real frames'
+   rows bit-equal to (a)'s, the match indices equal to (a)'s except at
+   near ties, no valid row in the pad frame and no match to it; (c)
+   dryrun_multichip on NCCL, one rank a card; (d) the wall of one step of
+   (a) and (b), median of three, beside the card's name and power limit;
+12. prints the kernel table as one JSON line (each row's launches are
    those of its home path, the first that launches it; K8's, on no path,
    are its counts summed, each required to be 0; each row also holds its
-   launches on every path, matching mode and the CLI included) and, last,
-   the device line, after checking that no JAX module was imported.
+   launches on every path, matching mode, the CLI and the multi-device
+   step included) and, last, the device line, after checking that no JAX
+   module was imported and that no process the script started is left
+   (every child has exited and been waited for).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -291,6 +310,24 @@ def smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def child_pids() -> list:
+    """The processes whose parent is this one, in any state (a child that
+    has exited but was not waited for included)."""
+    me = str(os.getpid())
+    kids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        if stat.rsplit(")", 1)[1].split()[1] == me:
+            kids.append(int(d))
+    return kids
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
@@ -744,7 +781,7 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     # K6 on the octave's (extremum, orientation) rows
     num_ori, oris = ops_ori.assign_orientations(field, ex.xpos, ex.ypos,
                                                 ex.lpos, ex.sigma)
-    feat, ang, _ = ext.descriptor_rows(plan, ob, num_ori, oris)
+    feat, ang, _, _ = ext.descriptor_rows(plan, ob, num_ori, oris)
     half = plan.desc_win // 2
     args6 = (field, ex.xpos[feat].contiguous(), ex.ypos[feat].contiguous(),
              ex.lpos[feat].contiguous(), ex.sigma[feat].contiguous(),
@@ -1275,7 +1312,7 @@ def check_stack_kernels(torch, plan, o, stack, ex, table: Table,
     hp = binwin.ori_hist_stack_plain(*a10)
     require(torch.allclose(hk, hp, rtol=1e-5, atol=1e-6),
             f"K10 histograms differ by {max_abs(hk, hp):.3g}")
-    feat, ang, _ = ext.descriptor_rows(plan, o, num_ori, oris)
+    feat, ang, _, _ = ext.descriptor_rows(plan, o, num_ori, oris)
     half = plan.desc_win // 2
     rows = tuple(v[feat].contiguous() for v in a10[1:]) + (ang.contiguous(),)
     dk = binwin.desc_loop_stack(stack, *rows, half)
@@ -2777,6 +2814,246 @@ def run_cli(torch, pt, scenes, loop_feats, match_stats, smi: str) -> dict:
     return stats
 
 
+# Phase 11, the multi-device SfM front end (popsift_torch.parallel): (a)
+# one NCCL rank in this process, (b) four gloo ranks sharing the card, (c)
+# dryrun_multichip on NCCL, one rank a card.
+PARALLEL_TIMEOUT_S = 600.0
+STEP_REPEATS = 3
+
+
+def frames_key(pt, feats, w: int, h: int) -> tuple:
+    """key_from_counts of the largest per-octave extrema and descriptor
+    rows of ``feats``: a key that holds every row of each frame."""
+    from popsift_torch.parallel.batch import key_from_counts
+    plan = pt.extract.make_plan(pt.Config(), w, h)
+    counts = np.zeros(plan.octaves, np.int64)
+    rows = np.zeros(plan.octaves, np.int64)
+    for f in feats:
+        s = f.soa()
+        counts = np.maximum(counts, np.bincount(
+            s["debug_octave"], minlength=plan.octaves))
+        rows = np.maximum(rows, np.bincount(
+            s["debug_octave"], weights=s["num_ori"],
+            minlength=plan.octaves).astype(np.int64))
+    return key_from_counts(plan, counts.tolist(), rows.tolist())
+
+
+def timed_steps(torch, run, args, reps: int, barrier=None) -> list:
+    walls = []
+    for _ in range(reps):
+        if barrier is not None:
+            barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def step_pairs(match, out) -> list:
+    """The sharded matcher's per-row results of each pair i -> i+1 of a
+    step's blocks, as the step matches them."""
+    d, v = out["desc"], out["desc_valid"]
+    return [tuple(t.cpu().numpy() for t in match(d[i], d[i + 1], v[i + 1]))
+            for i in range(d.shape[0] - 1)]
+
+
+def to_host(out: dict) -> dict:
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def parallel_rank(rank: int, scenes: np.ndarray, key: tuple,
+                  reps: int) -> dict:
+    """(b)'s rank: the step on scenes padded over a (2, 2) mesh whose
+    four gloo ranks share cuda:0."""
+    import torch
+    import torch.distributed as dist
+    from popsift_torch import Config
+    from popsift_torch.parallel import batch as pb
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = pb.make_mesh(2, 2, device="cuda:0")
+    h, w = scenes.shape[1:]
+    run, _ = pb.sfm_frontend_step(Config(), w, h, mesh, desc_cap=key[4],
+                                  key=key)
+    padded, valid = pb.pad_batch(scenes, mesh)
+    out = run(padded, valid)
+    walls = timed_steps(torch, run, (padded, valid), reps, dist.barrier)
+    again = run(padded, valid)
+    return dict(to_host(out), pairs=step_pairs(pb.sharded_match(mesh), out),
+                walls=walls, again=to_host(again),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def require_pairs_equal(got: list, want: list, blocks, label: str) -> int:
+    """Per pair, the rows (of valid left descriptors) whose best, second
+    or accept differ between two matchers: each must be a near tie of the
+    float64 matcher on the pair's valid blocks, and at most
+    MOST_NEAR_TIE_MISMATCHES of the rows.  Returns how many differ."""
+    n_differ = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        l, r = blocks[i], blocks[i + 1]
+        n = l.shape[0]
+        differ = ((g[0][:n] != w[0][:n]) | (g[1][:n] != w[1][:n])
+                  | (g[2][:n] != w[2][:n]))
+        if differ.any():
+            _, _, _, pd1, pd2, pd3 = plain_match64(l, r)
+            near = ((pd2 - pd1 <= NEAR_TIE) | (pd3 - pd2 <= NEAR_TIE)
+                    | (np.abs(pd1 / np.maximum(pd2, 1e-300) - 0.8)
+                       <= NEAR_TIE))
+            require(bool(near[differ].all()),
+                    f"{label}: pair {i}->{i + 1} differs away from a near "
+                    f"tie at rows {np.flatnonzero(differ & ~near)[:10]}")
+            require(int(differ.sum()) <= MOST_NEAR_TIE_MISMATCHES * n,
+                    f"{label}: pair {i}->{i + 1}: {int(differ.sum())} of "
+                    f"{n} rows differ")
+        n_differ += int(differ.sum())
+    return n_differ
+
+
+def run_parallel(torch, pt, scenes, loop_feats, smi: str) -> dict:
+    """Phase 11: the multi-device SfM front end on the card."""
+    import shutil
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from popsift_torch import kernels
+    from popsift_torch.ops.match import match_brute_force
+    from popsift_torch.parallel import batch as pb
+    from popsift_torch.parallel.dryrun import dryrun_multichip
+    from popsift_torch.parallel.ranks import run_ranks
+
+    print(f"phase 11: the multi-device SfM front end ({smi})", flush=True)
+    t_phase = time.perf_counter()
+    h, w = scenes[0].shape
+    images = np.stack(scenes)
+    key = frames_key(pt, loop_feats, w, h)
+    host = [f.get_descriptors() for f in loop_feats]
+    stats = dict(key=key)
+
+    # (a) one NCCL rank, initialised here through a FileStore
+    tmp = tempfile.mkdtemp(prefix="popsift_store_")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1, timeout=timedelta(seconds=120))
+    try:
+        mesh = pb.make_mesh(1, 1, device="cuda:0")
+        run, _ = pb.sfm_frontend_step(pt.Config(), w, h, mesh,
+                                      desc_cap=key[4], key=key)
+        # the frames already on the card, as a caller that decodes there
+        frames = torch.as_tensor(images, device="cuda:0")
+        run(frames)                                   # first use
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = run(frames)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        walls_a = timed_steps(torch, run, (frames,), STEP_REPEATS)
+        match = pb.sharded_match(mesh)
+        pairs_a = step_pairs(match, out)
+        dense = [tuple(t.cpu().numpy() for t in match_brute_force(
+            out["desc"][i], out["desc"][i + 1], l_valid=out["desc_valid"][i],
+            r_valid=out["desc_valid"][i + 1])) for i in range(3)]
+        default_run, _ = pb.sfm_frontend_step(pt.Config(), w, h, mesh)
+        out_default = default_run(images)
+        over_default = out_default["overflow"].cpu().tolist()
+        ext_default = out_default["ext_counts"][0].cpu().tolist()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    a = to_host(out)
+    rows = a["desc_valid"].sum(axis=1)
+    for i, f in enumerate(loop_feats):
+        require(rows[i] == f.get_descriptor_count()
+                and bits_equal(a["desc"][i][:rows[i]], host[i]),
+                f"(a) image {i}: rows differ from phase 3's descriptors")
+    require(tuple(a["ext_counts"][0]) == DEFAULT_FEATURES,
+            f"(a) ext_counts {a['ext_counts'].tolist()}")
+    require(not a["overflow"].any(), f"(a) overflow {a['overflow']}")
+    for k in LOOP_PATH:
+        require(counts[k] > 0, f"(a) kernel {k} was not launched")
+    for k in NOT_ON_ANY_PATH:
+        require(counts[k] == 0, f"(a) kernel {k} was launched")
+    blocks = [a["desc"][i][:rows[i]] for i in range(4)]
+    mc = a["match_counts"].tolist()
+    require(mc == [int((p[2] & a["desc_valid"][i]).sum())
+                   for i, p in enumerate(pairs_a)],
+            "(a) match_counts differ from the sharded matcher's rows")
+    accepted = [int(p[2].sum()) for p in dense]
+    differ_a = require_pairs_equal(pairs_a, dense, blocks,
+                                   "(a) against match_brute_force")
+    require(all(abs(m - d) <= differ_a for m, d in zip(mc, accepted)),
+            f"(a) match_counts {mc}, match_brute_force {accepted}")
+    print(f"  (a) 1 NCCL rank, mesh (1, 1), 4 scenes on the card, key {key}: "
+          f"launches {json.dumps(counts)}; rows {rows.tolist()} bit-equal "
+          f"to phase 3's descriptors; ext_counts "
+          f"{a['ext_counts'][0].tolist()}; overflow "
+          f"{a['overflow'].tolist()}; match_counts {mc} "
+          f"(match_brute_force {accepted}, rows differing {differ_a}); "
+          f"under the default key extrema {ext_default}, overflow "
+          f"{over_default}", flush=True)
+    stats.update(counts=counts, match_counts=mc, dense_accepted=accepted,
+                 overflow_default_key=over_default,
+                 ext_counts_default_key=ext_default,
+                 step_ms_one_rank=walls_a)
+
+    # (b) four gloo ranks sharing the card, scenes 0-2 padded to four
+    t0 = time.perf_counter()
+    outs = run_ranks(parallel_rank, 4, "gloo",
+                     args=(images[:3], key, STEP_REPEATS),
+                     timeout=PARALLEL_TIMEOUT_S)
+    wall_b = time.perf_counter() - t0
+    b = outs[0]
+    fields = ("ext_counts", "overflow", "desc", "desc_valid", "match_counts")
+    for r, o in enumerate(outs):
+        for k in fields:
+            require(bits_equal(o[k], b[k]) and bits_equal(o["again"][k],
+                                                          b[k]),
+                    f"(b) rank {r}'s {k} differs from rank 0's")
+        for p, q in zip(o["pairs"], b["pairs"]):
+            require(all(bits_equal(x, y) for x, y in zip(p, q)),
+                    f"(b) rank {r}'s matches differ from rank 0's")
+    rows_b = b["desc_valid"].sum(axis=1)
+    for i in range(3):
+        require(rows_b[i] == rows[i] and bits_equal(
+            b["desc"][i][:rows[i]], a["desc"][i][:rows[i]]),
+            f"(b) image {i}: rows differ from (a)'s")
+    require(rows_b[3] == 0, "(b) the pad frame has valid rows")
+    require(b["match_counts"][2] == 0, "(b) the pad pair has matches")
+    require(tuple(b["ext_counts"][0][:3]) == DEFAULT_FEATURES[:3],
+            f"(b) ext_counts {b['ext_counts'].tolist()}")
+    differ_b = require_pairs_equal(b["pairs"][:2], pairs_a[:2], blocks,
+                                   "(b) against (a)")
+    print(f"  (b) 4 gloo ranks sharing cuda:0, mesh (2, 2), scenes 0-2 + 1 "
+          f"pad: the ranks bit-equal (two steps each); rows "
+          f"{rows_b.tolist()}, real frames bit-equal to (a); match_counts "
+          f"{b['match_counts'].tolist()} (rows differing from (a) at near "
+          f"ties {differ_b}); "
+          f"peak {max(o['peak_gib'] for o in outs):.3f} GiB a rank; "
+          f"{wall_b:.1f} s with start-up ({smi})", flush=True)
+    stats.update(match_counts_4=b["match_counts"].tolist(),
+                 rows_differing_4=differ_b,
+                 step_ms_four_ranks=[max(o["walls"][j] for o in outs)
+                                     for j in range(STEP_REPEATS)],
+                 ranks_wall_s=wall_b)
+
+    # (c) dryrun_multichip on NCCL, one rank a card
+    stats["dryrun"] = dryrun_multichip(torch.cuda.device_count(), "cuda")
+    print(f"  (c) {stats['dryrun']}", flush=True)
+
+    # (d) the wall of one step, median of three (no claim)
+    for label, k in (("(a) 1 rank, 4 scenes", "step_ms_one_rank"),
+                     ("(b) 4 ranks, 3 scenes + pad", "step_ms_four_ranks")):
+        print(f"  (d) {label}: step {float(np.median(stats[k])):.3f} ms "
+              f"(median of {', '.join(f'{t:.3f}' for t in stats[k])}; "
+              f"{smi})", flush=True)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 11 took {stats['phase_s']:.1f} s ({smi})", flush=True)
+    return stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2916,14 +3193,23 @@ def main() -> int:
         table.rows[name]["launches_by_path"]["cli"] = \
             cli_stats["counts"][name]
 
+    parallel_stats = run_parallel(torch, pt, scenes, loop_feats, smi)
+    for name in table.rows:
+        table.rows[name]["launches_by_path"]["parallel"] = \
+            parallel_stats["counts"][name]
+
     require(not any(m == "jax" or m.startswith(("jax.", "popsift_tpu"))
                     for m in sys.modules), "JAX was imported")
-    print("phase 11: the kernel table", flush=True)
+    left = child_pids()
+    require(not left, f"processes started by this script are still "
+            f"running: {left}")
+    print("phase 12: the kernel table (no child process left)", flush=True)
     print(json.dumps({f"{p}_path": st for p, st in stats.items()}),
           flush=True)
     print(json.dumps({"matching": match_stats}), flush=True)
     print(json.dumps({"modes": mode_stats}), flush=True)
     print(json.dumps({"cli": cli_stats}), flush=True)
+    print(json.dumps({"parallel": parallel_stats}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": [table.rows[k] for k in _lib.KERNELS]}),
           flush=True)

@@ -2,13 +2,14 @@
 
 The counterpart of ``popsift_tpu.extract`` + ``popsift_tpu.staged``:
 :func:`make_plan` gives the static per-octave shapes and capacities, and
-:func:`extract_features` runs the stages as the staged extractor does:
+:func:`extract_octaves` runs the stages as the staged extractor does:
 the pyramid and keypoints of every octave (:func:`octave_keypoints_all`),
-the grid filter over all of them (:func:`filter_extrema`), then
-orientation and descriptors octave by octave (:func:`octave_features`),
-reading the candidate, extremum and orientation counts back to the host
-between stages (shapes are dynamic on the GPU, so there are no compile
-buckets).  Each phase runs in a :func:`~popsift_torch.tracing.scope`
+the grid filter over all of them (:func:`filter_extrema`; the two are
+:func:`image_keypoints`), then orientation and descriptors octave by
+octave (:func:`octave_features`), which :func:`extract_features`
+assembles.  They read the candidate, extremum and orientation counts back
+to the host between stages (shapes are dynamic on the GPU, so there are
+no compile buckets).  Each phase runs in a :func:`~popsift_torch.tracing.scope`
 (pyramid, detect, filter, orientation, descriptors, download, assemble),
 and with ``POPSIFT_TPU_HOSTTRACE=1`` the extraction, each octave's two
 stages, the filter and the assembly are host spans, with the counts read
@@ -128,15 +129,21 @@ def normalize_input(image: np.ndarray) -> np.ndarray:
     return np.asarray(image, dtype=np.float32)
 
 
-def to_unit_image(image: np.ndarray, device) -> torch.Tensor:
+def to_unit_image(image, device) -> torch.Tensor:
     """The (H, W) input on ``device`` as f32 in [0, 1]: bytes are uploaded
     and scaled on the device by 1/255 as the staged extractor does; other
-    input is normalised on the host first (popsift_tpu/pipeline.py:374)."""
-    image = np.ascontiguousarray(image)
-    if image.dtype == np.uint8:
+    input is normalised on the host first (popsift_tpu/pipeline.py:374).
+    A tensor is taken as it is, from the device it lies on."""
+    if isinstance(image, torch.Tensor):
+        t = image.to(device)
+    else:
+        image = np.ascontiguousarray(image)
+        if image.dtype != np.uint8:
+            return torch.as_tensor(normalize_input(image)).to(device)
         t = torch.as_tensor(image).to(device)
+    if t.dtype == torch.uint8:
         return t.to(torch.float32) * (1.0 / 255.0)
-    return torch.as_tensor(normalize_input(image)).to(device)
+    return t.to(torch.float32)
 
 
 def refine_params_for(plan: ExtractorPlan, o: int, n_layers: int):
@@ -161,7 +168,7 @@ def descriptor_rows(plan: ExtractorPlan, o: int, num_ori: torch.Tensor,
                     orientations: torch.Tensor):
     """One row per (extremum, orientation) in feature order, clamped at
     the octave's orientation capacity.  Returns (feature index, angle,
-    num_ori clamped to the rows produced)."""
+    num_ori clamped to the rows produced, and the rows before the clamp)."""
     dev = num_ori.device
     n = num_ori.shape[0]
     incl = torch.cumsum(num_ori.to(torch.int64), 0)
@@ -174,7 +181,7 @@ def descriptor_rows(plan: ExtractorPlan, o: int, num_ori: torch.Tensor,
     ang = orientations[feat, k]
     num_eff = torch.clamp(torch.minimum(num_ori.to(torch.int64),
                                         rows - first), min=0)
-    return feat, ang, num_eff.to(torch.int32)
+    return feat, ang, num_eff.to(torch.int32), total
 
 
 def _quantize(desc: torch.Tensor, mode: str, norm_multi: int):
@@ -244,7 +251,8 @@ def octave_features(plan: ExtractorPlan, o: int, stack, ext,
     float32 tensor on the device.  With ``stack_kernels``, orientation and
     loop descriptors read ``stack`` (K10, K11); otherwise they read
     ``field``, computed from ``stack`` (K2) unless it is given.  ``consts``
-    is needed by the NoTile and IGrid modes only."""
+    is needed by the NoTile and IGrid modes only.  ``ori_count`` is the
+    octave's descriptor rows before the orientation capacity's clamp."""
     dev = ext.xpos.device
     with scope("orientation", dev):
         if not stack_kernels and field is None:
@@ -252,7 +260,7 @@ def octave_features(plan: ExtractorPlan, o: int, stack, ext,
         num_ori, oris = ops_ori.assign_orientations(
             field, ext.xpos, ext.ypos, ext.lpos, ext.sigma,
             stack=stack if stack_kernels else None)
-        feat, ang, num_eff = descriptor_rows(plan, o, num_ori, oris)
+        feat, ang, num_eff, total = descriptor_rows(plan, o, num_ori, oris)
     with scope("descriptors", dev):
         desc = dispatch_descriptors(plan, consts, stack, field,
                                     ext.xpos[feat], ext.ypos[feat],
@@ -269,7 +277,7 @@ def octave_features(plan: ExtractorPlan, o: int, stack, ext,
                     orientations=oris.cpu().numpy(),
                     desc=(quantize_descs_dev if want_dev else quantize_descs)(
                         desc, desc_transfer, plan.norm_multi),
-                    overflow=ext.overflow)
+                    overflow=ext.overflow, ori_count=total)
 
 
 def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
@@ -332,16 +340,83 @@ def filter_extrema(plan: ExtractorPlan, exts: list) -> list:
     return [ops_fg.recompact(e, k) for e, k in zip(exts, keeps)]
 
 
+def image_keypoints(plan: ExtractorPlan, gauss, img: torch.Tensor,
+                    stack_kernels: bool, return_pyramid: bool = False):
+    """Stage 1 of every octave of ``img`` (the [0, 1] input on the device)
+    and the grid filter: per octave (stack, field, Extrema), the extrema
+    filtered, and the DoGs (None unless ``return_pyramid``, which also
+    keeps every chain octave's whole stack)."""
+    # the sampling descriptor modes and the stack kernels read every
+    # blurred level, and the loop mode's field path only the field, so
+    # chain octaves then keep only level L-3 (popsift_tpu staged.py:
+    # 180-182)
+    full_stacks = (plan.desc_mode != DescMode.LOOP or stack_kernels
+                   or return_pyramid)
+    dogs = [] if return_pyramid else None
+    stage1 = octave_keypoints_all(plan, gauss, img, full_stacks,
+                                  need_field=not stack_kernels, dogs=dogs)
+    key = span_key()
+    host_trace("filter.start", key)
+    with scope("filter", img.device):
+        exts = filter_extrema(plan, [e for _, _, e in stage1])
+    host_trace("filter.end", key)
+    return ([(s, f, e) for (s, f, _), e in zip(stage1, exts)], dogs)
+
+
+def _first(ext: ops_ext.Extrema, k: int) -> ops_ext.Extrema:
+    if ext.count <= k:
+        return ext
+    return ext._replace(xpos=ext.xpos[:k], ypos=ext.ypos[:k],
+                        lpos=ext.lpos[:k], sigma=ext.sigma[:k],
+                        cell=ext.cell[:k], count=k)
+
+
+def extract_octaves(image, config: Config, plan: ExtractorPlan, device,
+                    want_dev: bool = False, ks: tuple | None = None,
+                    return_pyramid: bool = False) -> tuple:
+    """Stage 1, the grid filter and stage 2 of one (H, W) image under
+    ``plan``: per octave the dict of :func:`octave_features`.  With ``ks``
+    only the first ``ks[o]`` extrema of octave o go on to stage 2 (a
+    compile bucket's clamp; their ``overflow`` is not raised).
+    :func:`stack_kernels_enabled` is read once, here, and holds for the
+    whole image.  Every octave's stack and field stay on the device until
+    its descriptors are done, since the grid filter needs every octave's
+    extrema first.  Returns (octaves, stacks, dogs), the last two None
+    unless ``return_pyramid``."""
+    img = to_unit_image(image, device)
+    stack_kernels = stack_kernels_enabled()
+    # NoTile and IGrid need the two descriptor tables
+    consts = (build_const_info(config, device=device)
+              if plan.desc_mode in (DescMode.NOTILE, DescMode.IGRID)
+              else None)
+    stage1, dogs = image_keypoints(plan, build_gauss_info(config), img,
+                                   stack_kernels, return_pyramid)
+    stacks = [s for s, _, _ in stage1] if return_pyramid else None
+    key = span_key()
+    octaves = []
+    for o in range(plan.octaves):
+        stack, field, ext = stage1[o]
+        stage1[o] = None          # free the octave once it is done
+        if ks is not None:
+            ext = _first(ext, ks[o])
+        host_trace(f"stage2.o{o}.start", key)
+        octaves.append(octave_features(
+            plan, o, stack, ext, config.desc_transfer, field=field,
+            consts=consts, stack_kernels=stack_kernels, want_dev=want_dev))
+        host_trace(f"stage2.o{o}.end", key)
+    host_trace("descriptors", key,
+               n=sum(int(od["desc"].shape[0]) for od in octaves))
+    return octaves, stacks, dogs
+
+
 def extract_features(image, config: Config, device="cuda",
                      want_dev: bool = False, return_pyramid: bool = False
                      ) -> FeaturesHost | FeaturesDev | tuple:
     """Extract the features of one (H, W) uint8 or [0,1] float image:
     a :class:`FeaturesHost`, or with ``want_dev`` a :class:`FeaturesDev`
     whose descriptors stay on ``device`` (MatchingMode), equal to the
-    host descriptors bit for bit.  :func:`stack_kernels_enabled` is read
-    once, here, and holds for the whole image.  Every octave's stack and
-    field stay on the device until its descriptors are done, since the
-    grid filter needs every octave's extrema first.
+    host descriptors bit for bit (:func:`extract_octaves`, then the
+    assembly).
 
     With ``return_pyramid`` (the ``--log`` dump tree) it returns
     (features, stacks, dogs): per octave its whole (L+3, H, W) stack and
@@ -353,39 +428,11 @@ def extract_features(image, config: Config, device="cuda",
     check_supported(config)
     h, w = np.shape(image)
     plan = make_plan(config, w, h)
-    gauss = build_gauss_info(config)
-    img = to_unit_image(image, device)
-    stack_kernels = stack_kernels_enabled()
-    # the sampling descriptor modes and the stack kernels read every
-    # blurred level, and the loop mode's field path only the field, so
-    # chain octaves then keep only level L-3 (popsift_tpu staged.py:
-    # 180-182); NoTile and IGrid need the two descriptor tables
-    full_stacks = (plan.desc_mode != DescMode.LOOP or stack_kernels
-                   or return_pyramid)
-    consts = (build_const_info(config, device=device)
-              if plan.desc_mode in (DescMode.NOTILE, DescMode.IGRID)
-              else None)
-    dogs = [] if return_pyramid else None
-    stage1 = octave_keypoints_all(plan, gauss, img, full_stacks,
-                                  need_field=not stack_kernels, dogs=dogs)
-    stacks = [s for s, _, _ in stage1] if return_pyramid else None
-    host_trace("filter.start", key)
-    with scope("filter", img.device):
-        exts = filter_extrema(plan, [e for _, _, e in stage1])
-    host_trace("filter.end", key)
-    octaves = []
-    for o, ext in enumerate(exts):
-        stack, field, _ = stage1[o]
-        stage1[o] = None          # free the octave once it is done
-        host_trace(f"stage2.o{o}.start", key)
-        octaves.append(octave_features(
-            plan, o, stack, ext, config.desc_transfer, field=field,
-            consts=consts, stack_kernels=stack_kernels, want_dev=want_dev))
-        host_trace(f"stage2.o{o}.end", key)
-    host_trace("descriptors", key,
-               n=sum(int(od["desc"].shape[0]) for od in octaves))
+    octaves, stacks, dogs = extract_octaves(
+        image, config, plan, device, want_dev=want_dev,
+        return_pyramid=return_pyramid)
     host_trace("assemble.start", key)
-    with scope("assemble", img.device):
+    with scope("assemble", device):
         if want_dev:
             feats = assemble_features_dev(octaves, plan.upscale_factor,
                                           device)

@@ -6,6 +6,9 @@ interface.  At first use on a CUDA device they are compiled for Hopper
 into one shared library under ``build/popsift_torch/`` and loaded with
 ``ctypes``.  The library's file name carries a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
+The build runs under an exclusive lock on a file beside the library
+(:func:`_ensure_built`), so ranks that start together on a fresh tree
+build it once and the others load what it built.
 
 Each wrapper counts its own launches here (:func:`count`); a run resets
 the counts with :func:`reset_launches` and reads them with
@@ -15,6 +18,7 @@ the counts with :func:`reset_launches` and reads them with
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -140,6 +144,23 @@ def _build(target: Path) -> None:
     build_info["build_seconds"] = time.perf_counter() - t0
 
 
+def _ensure_built(target: Path) -> bool:
+    """Build ``target`` unless it exists, holding an exclusive lock on
+    ``<target>.lock`` from the check to the end of the build: of
+    processes that start together one builds, and the others wait and
+    find the library.  Returns whether this process built it."""
+    target.parent.mkdir(parents=True, exist_ok=True)
+    with open(target.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if target.exists():
+                return False
+            _build(target)
+            return True
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 def _check_device(device: torch.device) -> None:
     cap = torch.cuda.get_device_capability(device)
     if tuple(cap) != (9, 0):
@@ -157,11 +178,8 @@ def library(device: torch.device) -> ctypes.CDLL:
             _check_device(device)
             target = BUILD_DIR / f"libpopsift_torch_{_digest()}.so"
             build_info["log_path"] = str(target.with_suffix(".log"))
-            if target.exists():
+            if not _ensure_built(target):
                 build_info.setdefault("build_seconds", 0.0)
-            else:
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                _build(target)
             lib = ctypes.CDLL(str(target))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -185,19 +185,69 @@ def test_from_numpy_rejects_bad_shapes():
 
 
 def test_port_imports_neither_jax_nor_popsift_tpu():
-    code = ("import sys, popsift_torch, popsift_torch.extract, "
-            "popsift_torch.pipeline, popsift_torch.tables, "
-            "popsift_torch.kernels.blur, popsift_torch.kernels.grad, "
-            "popsift_torch.kernels.detect, popsift_torch.kernels.refine, "
-            "popsift_torch.kernels.binwin, popsift_torch.kernels.desc_grid, "
-            "popsift_torch.ops.descriptors\n"
+    """Every module of popsift_torch, found by walking the package, imports
+    without importing JAX or popsift_tpu."""
+    code = ("import pkgutil, sys, importlib, popsift_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    popsift_torch.__path__, 'popsift_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'popsift_tpu'))\n"
-            "print(bad)\nsys.exit(1 if bad else 0)\n")
+            "print(len(names), names, bad)\n"
+            "needed = {'popsift_torch.cli.demo', 'popsift_torch.io.pgm', "
+            "'popsift_torch.parallel.batch', 'popsift_torch.parallel.dryrun', "
+            "'popsift_torch.eval.repeatability', 'popsift_torch.tracing', "
+            "'popsift_torch.device', 'popsift_torch.debugdump'}\n"
+            "sys.exit(1 if bad or not needed <= set(names) else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+STUB_NVCC = """#!/bin/sh
+echo "$*" >> "{log}"
+out=""
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; fi
+  shift
+done
+sleep 2
+: > "$out"
+"""
+
+
+def test_concurrent_first_uses_build_the_library_once(tmp_path):
+    """Three processes that need the kernel library at once, on a tree
+    where it is not built (as the ranks of one host do), build it once:
+    _lib._ensure_built holds a lock from the check to the end of the
+    build.  nvcc is a stub that logs its calls, sleeps and writes its
+    output file."""
+    from popsift_torch.kernels import _lib
+    log = tmp_path / "nvcc.log"
+    stub = tmp_path / "bin" / "nvcc"
+    stub.parent.mkdir()
+    stub.write_text(STUB_NVCC.format(log=log))
+    stub.chmod(0o755)
+    target = tmp_path / "build" / "libstub.so"
+    code = ("import sys\nfrom pathlib import Path\n"
+            "from popsift_torch.kernels import _lib\n"
+            "print(_lib._ensure_built(Path(sys.argv[1])))\n")
+    env = dict(os.environ, PYTHONPATH=REPO,
+               PATH=f"{stub.parent}{os.pathsep}{os.environ.get('PATH', '')}")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(target)],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(3)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0, 0], outs
+    assert sorted(o.strip() for o, _ in outs) == ["False", "False", "True"]
+    calls = log.read_text().splitlines()
+    sources = sorted(_lib.CSRC.glob("*.cu"))
+    assert len(calls) == len(sources) + 1, calls
+    assert sum(" -shared " in c for c in calls) == 1
+    assert target.exists()
 
 
 def test_popsift_without_cuda_raises(monkeypatch):

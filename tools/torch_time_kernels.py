@@ -277,7 +277,7 @@ def main() -> int:
         field = grad.grad_field(stack)
         num_ori, oris = ops_ori.assign_orientations(field, ex.xpos, ex.ypos,
                                                     ex.lpos, ex.sigma)
-        feat, ang, _ = ext.descriptor_rows(plan, o, num_ori, oris)
+        feat, ang, _, _ = ext.descriptor_rows(plan, o, num_ori, oris)
         rows = tuple(v[feat].contiguous() for v in (ex.xpos, ex.ypos,
                                                     ex.lpos, ex.sigma)) \
             + (ang.contiguous(),)
