@@ -150,13 +150,28 @@ JAX nor popsift_tpu.  In order it:
    near ties, no valid row in the pad frame and no match to it; (c)
    dryrun_multichip on NCCL, one rank a card; (d) the wall of one step of
    (a) and (b), median of three, beside the card's name and power limit;
-12. prints the kernel table as one JSON line (each row's launches are
+12. drives the lossless wire codec (popsift_torch.wirecodec): (a)
+   encodes the four scenes and three synthetic frames of their size on
+   the host (each scheme reached: the bitmap scheme on the scenes, 2-bit
+   codes and nibbles on the synthetic frames, and no buffer for a noise
+   frame, which upload_image_u8 then uploads raw); (b) decodes each
+   buffer on the card, bit-equal to the frame and to the CPU decode of
+   the same buffer; (c) passes upload_image_u8(scene, cuda) into
+   extract_features with the launch counts reset just before (the default
+   path's kernels launched, gather_windows and grad_field not; phase 3's
+   features bit for bit, with equal descriptor digests); (d) prints per
+   frame the bytes on the wire, the host encode time, the H2D copy of the
+   buffer against the raw frame's, and the decode's time between CUDA
+   events and on the device (for scene 0 also by kernel), beside the
+   card's name and power limit; (e)
+   checks that no JAX module was imported;
+13. prints the kernel table as one JSON line (each row's launches are
    those of its home path, the first that launches it; K8's, on no path,
    are its counts summed, each required to be 0; each row also holds its
-   launches on every path, matching mode, the CLI and the multi-device
-   step included) and, last, the device line, after checking that no JAX
-   module was imported and that no process the script started is left
-   (every child has exited and been waited for).
+   launches on every path, matching mode, the CLI, the multi-device step
+   and the codec upload included) and, last, the device line, after
+   checking that no JAX module was imported and that no process the
+   script started is left (every child has exited and been waited for).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -3054,6 +3069,173 @@ def run_parallel(torch, pt, scenes, loop_feats, smi: str) -> dict:
     return stats
 
 
+# Phase 12, the lossless wire codec (popsift_torch.wirecodec): numpy encode
+# on the host, decode on the card, and the codec upload into the
+# extraction.  Synthetic frames at the scenes' size reach the schemes the
+# scenes do not (all four take the bitmap scheme, bits=1).
+CODEC_REPEATS = 5
+
+
+def integrate_d2(d2: np.ndarray) -> np.ndarray:
+    """The u8 image whose mod-256 second difference is ``d2``."""
+    dy = np.cumsum(d2 % 256, axis=1) % 256
+    return (np.cumsum(dy, axis=0) % 256).astype(np.uint8)
+
+
+def codec_frames(h: int, w: int) -> dict:
+    """(name: (frame, scheme)) of the synthetic frames: residuals +-1 with
+    0.5% escapes (2-bit codes), residuals in [-5, 5] with 1% escapes
+    (nibbles), and uniform noise (no buffer: raw upload)."""
+    rng = np.random.default_rng(14)
+    two = rng.choice(np.array([-1, 1], np.int16), (h, w))
+    two[rng.random((h, w)) > 0.995] = 77
+    four = rng.integers(-5, 6, (h, w)).astype(np.int16)
+    four[rng.random((h, w)) > 0.99] = -90
+    return {"two-bit": (integrate_d2(two), 2),
+            "four-bit": (integrate_d2(four), 4),
+            "noise": (rng.integers(0, 256, (h, w), dtype=np.uint8), None)}
+
+
+def kernel_breakdown(torch, fn, reps: int = 10, top: int = 8) -> list:
+    """(kernel name, device ms a call, launches a call) of the ``top``
+    kernels by device time over ``reps`` calls of ``fn`` (torch.profiler,
+    50 ms idle on each side)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0:
+            rows.append((e.key, t / reps / 1e3, e.count / reps))
+    return sorted(rows, key=lambda r: -r[1])[:top]
+
+
+def run_codec(torch, pt, scenes, loop_feats, smi: str) -> dict:
+    """Phase 12: the lossless wire codec on the card."""
+    from popsift_torch import kernels
+    from popsift_torch import wirecodec as wc
+    from popsift_torch.extract import extract_features
+
+    print(f"phase 12: the lossless wire codec ({smi})", flush=True)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    h, w = scenes[0].shape
+    frames = {f"scene {i}": (s, 1) for i, s in enumerate(scenes)}
+    frames.update(codec_frames(h, w))
+    stats = dict(frames={})
+
+    # (a) encode on the host, (b) decode on the card against the frame and
+    # the CPU decode of the same buffer, (d) times
+    for name, (img, want) in frames.items():
+        enc = []
+        for _ in range(CODEC_REPEATS):
+            t0 = time.perf_counter()
+            buf = wc.encode_u8(img)
+            enc.append((time.perf_counter() - t0) * 1e3)
+        bits = None if buf is None else int(buf[:16].view(np.uint32)[2])
+        require(bits == want, f"(a) {name}: scheme {bits}, expected {want}")
+        row = dict(bits=bits, raw_bytes=img.size,
+                   encode_ms=float(np.median(enc)),
+                   h2d_raw_ms=cuda_ms(
+                       lambda: torch.from_numpy(img).to(dev)))
+        if buf is None:
+            decodes = []
+            real = wc.decode_u8
+            wc.decode_u8 = lambda *a: decodes.append(a) or real(*a)
+            try:
+                up = wc.upload_image_u8(img, dev)
+            finally:
+                wc.decode_u8 = real
+            require(not decodes, f"(b) {name}: decoded, not uploaded raw")
+            require(up.device.type == dev.type and up.dtype == torch.uint8
+                    and bits_equal(up.cpu().numpy(), img),
+                    f"(b) {name}: the raw upload differs from the frame")
+            print(f"  {name}: no buffer (raw {img.size} B), encode "
+                  f"{row['encode_ms']:.3f} ms; upload_image_u8 uploaded it "
+                  f"raw, equal; H2D raw {row['h2d_raw_ms']:.4f} ms",
+                  flush=True)
+            stats["frames"][name] = row
+            continue
+        host = torch.from_numpy(buf)
+        dbuf = host.to(dev)
+        got = wc.decode_u8(dbuf, h, w, bits)
+        torch.cuda.synchronize()
+        require(got.device.type == dev.type and got.dtype == torch.uint8,
+                f"(b) {name}: decoded to {got.dtype} on {got.device}")
+        require(bits_equal(got.cpu().numpy(), img),
+                f"(b) {name}: the card's decode differs from the frame")
+        require(bits_equal(got.cpu().numpy(),
+                           wc.decode_u8(host, h, w, bits).numpy()),
+                f"(b) {name}: the card's decode differs from the CPU's")
+        row.update(wire_bytes=buf.size,
+                   h2d_buffer_ms=cuda_ms(lambda: host.to(dev)),
+                   decode_ms=cuda_ms(lambda: wc.decode_u8(dbuf, h, w, bits)),
+                   decode_device_ms=all_device_ms(
+                       torch, lambda: wc.decode_u8(dbuf, h, w, bits)))
+        stats["frames"][name] = row
+        print(f"  {name}: bits={bits}, {buf.size} B of {img.size} raw "
+              f"({img.size / buf.size:.2f}x); decode on the card = frame = "
+              f"CPU decode, bit for bit; encode {row['encode_ms']:.3f} ms "
+              f"(host, median of {CODEC_REPEATS}); H2D buffer "
+              f"{row['h2d_buffer_ms']:.4f} ms, raw {row['h2d_raw_ms']:.4f} "
+              f"ms; decode {row['decode_ms']:.4f} ms (events), "
+              f"{fmt_ms(row['decode_device_ms'])} ms (device)", flush=True)
+
+    # (c) the codec upload into the extraction, launch counts reset just
+    # before: phase 3's features bit for bit
+    uploads = [wc.upload_image_u8(s, dev) for s in scenes]
+    extract_features(uploads[-1], pt.Config(), dev)            # first use
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    feats = [extract_features(u, pt.Config(), dev) for u in uploads]
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    for k in LOOP_PATH:
+        require(counts[k] > 0, f"(c) kernel {k} was not launched")
+    for k in NOT_ON_ANY_PATH:
+        require(counts[k] == 0, f"(c) kernel {k} was launched")
+    got = tuple(f.get_feature_count() for f in feats)
+    require(got == DEFAULT_FEATURES, f"(c) features per image {got}")
+    for i, (a, b) in enumerate(zip(feats, loop_feats)):
+        require(features_equal(a, b),
+                f"(c) scene {i}: features differ from phase 3's")
+    digests = [hashlib.sha256(f.get_descriptors().tobytes()).hexdigest()[:16]
+               for f in feats]
+    require(digests == [hashlib.sha256(f.get_descriptors().tobytes())
+                        .hexdigest()[:16] for f in loop_feats],
+            "(c) descriptor digests differ from phase 3's")
+    print(f"  (c) extract_features(upload_image_u8(scene, cuda)): features "
+          f"{got}, bit-equal to phase 3's (descriptor sha256 "
+          f"{', '.join(digests)}); launches {json.dumps(counts)}", flush=True)
+    stats.update(counts=counts, features=list(got), desc_sha256=digests)
+
+    # where the decode's device time goes (scene 0's buffer)
+    dbuf = torch.from_numpy(wc.encode_u8(scenes[0])).to(dev)
+    stats["decode_kernels"] = kernel_breakdown(
+        torch, lambda: wc.decode_u8(dbuf, h, w, 1))
+    print("  (d) scene 0's decode by kernel, device ms a call (launches): "
+          + "; ".join(f"{t:.4f} ({c:g}) {k[:60]}"
+                      for k, t, c in stats["decode_kernels"]), flush=True)
+
+    # (e) no JAX module and no popsift_tpu module
+    require(not any(m == "jax" or m.startswith(("jax.", "popsift_tpu"))
+                    for m in sys.modules), "JAX was imported")
+    print("  (e) no JAX module and no popsift_tpu module was imported",
+          flush=True)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 12 took {stats['phase_s']:.1f} s ({smi})", flush=True)
+    return stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3198,18 +3380,24 @@ def main() -> int:
         table.rows[name]["launches_by_path"]["parallel"] = \
             parallel_stats["counts"][name]
 
+    codec_stats = run_codec(torch, pt, scenes, loop_feats, smi)
+    for name in table.rows:
+        table.rows[name]["launches_by_path"]["codec"] = \
+            codec_stats["counts"][name]
+
     require(not any(m == "jax" or m.startswith(("jax.", "popsift_tpu"))
                     for m in sys.modules), "JAX was imported")
     left = child_pids()
     require(not left, f"processes started by this script are still "
             f"running: {left}")
-    print("phase 12: the kernel table (no child process left)", flush=True)
+    print("phase 13: the kernel table (no child process left)", flush=True)
     print(json.dumps({f"{p}_path": st for p, st in stats.items()}),
           flush=True)
     print(json.dumps({"matching": match_stats}), flush=True)
     print(json.dumps({"modes": mode_stats}), flush=True)
     print(json.dumps({"cli": cli_stats}), flush=True)
     print(json.dumps({"parallel": parallel_stats}), flush=True)
+    print(json.dumps({"codec": codec_stats}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": [table.rows[k] for k in _lib.KERNELS]}),
           flush=True)

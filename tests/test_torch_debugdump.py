@@ -27,6 +27,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 from popsift_tpu import debugdump as jdump  # noqa: E402
 from popsift_tpu.io import pgm as jpgm  # noqa: E402
 

@@ -33,6 +33,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 from popsift_torch.constants import desc_tables_on  # noqa: E402
 from popsift_torch.kernels import desc_grid as tkgrid  # noqa: E402
 from popsift_torch.ops.descriptors import desc_window_size  # noqa: E402

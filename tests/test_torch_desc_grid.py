@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 from popsift_tpu.config import Config as JConfig  # noqa: E402

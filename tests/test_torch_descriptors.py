@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 
 from popsift_tpu.ops import descriptors as jdesc  # noqa: E402

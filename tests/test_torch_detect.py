@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 
 from popsift_tpu import config as jcfg  # noqa: E402

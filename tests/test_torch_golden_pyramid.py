@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 from popsift_torch import extract as text  # noqa: E402
 from popsift_torch.config import Config  # noqa: E402
 from popsift_torch.gauss import build_gauss_info  # noqa: E402

@@ -31,6 +31,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 from popsift_tpu import gauss as jgauss  # noqa: E402
 from popsift_tpu.cli import common as jcommon  # noqa: E402
 from popsift_tpu.io import pgm as jpgm  # noqa: E402

@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 from popsift_tpu.ops.match import match_brute_force_jit  # noqa: E402

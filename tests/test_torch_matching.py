@@ -34,6 +34,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 import popsift_tpu  # noqa: E402

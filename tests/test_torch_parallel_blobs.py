@@ -29,6 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 import torch_parity as tp  # noqa: E402

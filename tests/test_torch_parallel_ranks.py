@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import torch_parallel_ranks as tpr  # noqa: E402
 from popsift_torch.parallel.ranks import run_ranks  # noqa: E402
 

@@ -27,6 +27,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import popsift_tpu  # noqa: E402
 
 import popsift_torch as pt  # noqa: E402

@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 from popsift_tpu.eval import repeatability as jrep  # noqa: E402
 
 import popsift_torch as pt  # noqa: E402

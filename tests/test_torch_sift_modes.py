@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import torch_parity as tp  # noqa: E402
 
 from popsift_torch import config as tcfg  # noqa: E402

@@ -30,6 +30,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 from popsift_tpu.constants import DESC_MAGNIFY  # noqa: E402

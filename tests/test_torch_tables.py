@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 from popsift_tpu import config as jcfg  # noqa: E402
 from popsift_tpu import constants as jconst  # noqa: E402
 from popsift_tpu import extract as jext  # noqa: E402
@@ -198,7 +200,8 @@ def test_port_imports_neither_jax_nor_popsift_tpu():
             "needed = {'popsift_torch.cli.demo', 'popsift_torch.io.pgm', "
             "'popsift_torch.parallel.batch', 'popsift_torch.parallel.dryrun', "
             "'popsift_torch.eval.repeatability', 'popsift_torch.tracing', "
-            "'popsift_torch.device', 'popsift_torch.debugdump'}\n"
+            "'popsift_torch.device', 'popsift_torch.debugdump', "
+            "'popsift_torch.wirecodec'}\n"
             "sys.exit(1 if bad or not needed <= set(names) else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

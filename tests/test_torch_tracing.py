@@ -24,6 +24,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 from popsift_tpu import device as jdevice  # noqa: E402
 from popsift_tpu import tracing as jtracing  # noqa: E402
 
@@ -91,7 +93,8 @@ print("OK")
 
 
 def test_pipeline_uninit_with_hosttrace_enabled():
-    env = dict(os.environ, POPSIFT_TPU_HOSTTRACE="1")
+    # one PyTorch thread in the child too (test_torch_threads.py says why)
+    env = dict(os.environ, POPSIFT_TPU_HOSTTRACE="1", OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run([sys.executable, "-c", _PIPELINE_SCRIPT],
                        capture_output=True, text=True, timeout=600, env=env,

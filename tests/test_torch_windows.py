@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 from popsift_tpu.kernels import windows as jwin  # noqa: E402
