@@ -31,7 +31,12 @@ JAX nor popsift_tpu.  In order it:
    stack kernels also bit for bit against the field kernels on K2's field,
    at octave 0, at the busiest octave and at the octave of the largest
    sigma), the window gather (both call shapes, though no path launches
-   it: K9, K12 and K13 read its windows from the stack), and the NoTile,
+   it: K9, K12 and K13 read its windows from the stack; at the busiest
+   octave and with the same rows on octave 0's stack, which does not fit
+   in L2, each shape's share of its bound printed; and bit for bit on
+   origins that reach every branch of its kernel: inside the plane at
+   each 16-byte shift, across each edge and corner, wholly outside, at
+   the last level, for 0, 1, 37 and 2311 rows), and the NoTile,
    Grid and ILoop descriptors read from the stack (against K8's plain
    windows and the window forms; bit-identical run to run and with every
    row's taps read through L2 instead of the staged footprint, also timed
@@ -835,7 +840,8 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
           f"{half}", flush=True)
     check_stack_kernels(torch, plan, ow, st, e, table, timed=False)
 
-    check_windows_and_grid(torch, plan, stack, args6[1:6], table)
+    check_windows_and_grid(torch, plan, stack, stack0, ob, args6[1:6],
+                           table)
     check_blur_classes(torch, pt, scene, table, dev)
     for mode in ("opencv", "vlfeat"):
         check_mode_keypoints(torch, pt, scene, mode, table, dev)
@@ -1446,51 +1452,198 @@ def check_chain(torch, plan, gauss, o, stack, dog, table: Table) -> None:
           f"{cuda_ms(per_level, reps=10):.6f} ms)", flush=True)
 
 
-def check_windows_and_grid(torch, plan, stack, rows, table: Table) -> None:
-    """K8 in both call shapes, which no path launches since K9, K12 and K13
-    read its windows from the stack, then K9, K12 and K13 on the
-    descriptor rows of one octave, as the NoTile path gives them."""
+def window_index(torch, plane, lps, oy, ox, wy: int, wx: int):
+    """The index tensors of one advanced-indexing call, ``plane[li, yi,
+    xi]``, that gathers K8's windows with clamped addressing."""
+    _, h, w = plane.shape
+    dev = plane.device
+    li = lps.long()[:, None, None]
+    yi = (oy.long()[:, None] + torch.arange(wy, device=dev)
+          ).clamp(0, h - 1)[:, :, None]
+    xi = (ox.long()[:, None] + torch.arange(wx, device=dev)
+          ).clamp(0, w - 1)[:, None, :]
+    return li, yi, xi
+
+
+def gather_bytes(plane, lps, oy, ox, wy: int, wx: int) -> int:
+    """K8's compulsory bytes: each distinct plane pixel that its clamped
+    windows read, once, each window pixel written once, the three
+    origins."""
+    L, h, w = plane.shape
+    n = int(lps.shape[0])
+    union = box_union_pixels(
+        lps, ox.clamp(0, w - 1), (ox + wx - 1).clamp(0, w - 1),
+        oy.clamp(0, h - 1), (oy + wy - 1).clamp(0, h - 1), L, h, w)
+    return 4 * union + 4 * n * wy * wx + 12 * n
+
+
+def window_branches(torch, plane, lps, oy, ox, wy: int, wx: int) -> dict:
+    """How the items of csrc/windows.cu (bands of ITEM_ROWS rows by chunks
+    of ITEM_COLS columns of a window) split over its branches for these
+    origins: rows of items inside the plane by the 16-byte shift of their
+    first column (0-3), items on the clamped path across an edge or wholly
+    outside, inside items narrower than a warp's chunk, and items of rows
+    whose width is not a multiple of 4 (clamped path, 4-byte stores)."""
+    from popsift_torch.kernels import windows
+    R, C = windows.ITEM_ROWS, windows.ITEM_COLS
+    L, H, W = plane.shape
+    dev = plane.device
+    b = torch.arange(-(-wy // R), device=dev)
+    c = torch.arange(-(-wx // C), device=dev)
+    y0 = oy.long()[:, None, None] + R * b[None, :, None]
+    x0 = ox.long()[:, None, None] + C * c[None, None, :]
+    nr = (wy - R * b).clamp(max=R)[None, :, None]
+    nc = (wx - C * c).clamp(max=C)[None, None, :]
+    vec = wx % 4 == 0
+    inside = (y0 >= 0) & (y0 + nr <= H) & (x0 >= 0) & (x0 + nc <= W) & vec
+    outside = (y0 + nr <= 0) | (y0 >= H) | (x0 + nc <= 0) | (x0 >= W)
+    items = torch.ones_like(inside)
+    k = torch.arange(R, device=dev)
+    first = (plane.data_ptr() // 4 + lps.long()[:, None, None, None] * H * W
+             + (y0[..., None] + k) * W + x0[..., None])
+    row = (inside[..., None] & (k < nr[..., None])).expand(first.shape)
+    out = {f"inside rows, shift {s}": int((row & (first % 4 == s)).sum())
+           for s in range(4)}
+    out["clamped items across an edge"] = int((~inside & ~outside & vec)
+                                              .sum())
+    out["clamped items wholly outside"] = int((outside & vec).sum())
+    out["inside items narrower than a chunk"] = int(
+        (inside & (nc < C)).expand(items.shape).sum())
+    out["items of 4-byte stores"] = 0 if vec else int(items.sum())
+    return out
+
+
+def branch_origins(torch, L: int, H: int, W: int, wy: int, wx: int, n: int,
+                   seed: int, dev):
+    """``n`` window origins (level, y, x) for K8: every pairing of rows
+    and columns inside the plane, across each edge and corner, and wholly
+    outside it, shuffled, then random origins inside; every fifth at the
+    last level."""
+    rng = np.random.default_rng(seed)
+    ys = [-1000, -wy - 5, -(wy // 2), -1, 0, 1, 2, 3, H - wy, H - wy // 2,
+          H - 1, H + 3]
+    xs = [-1000, -wx - 9, -(wx // 2), -1, 0, 1, 2, 3, W - wx, W - wx + 1,
+          W - wx // 2, W - 1, W + 1]
+    pairs = np.array([(y, x) for y in ys for x in xs])[
+        rng.permutation(len(ys) * len(xs))]
+    y = rng.integers(0, max(H - wy, 0) + 1, n)
+    x = rng.integers(0, max(W - wx, 0) + 1, n)
+    m = min(n, len(pairs))
+    y[:m], x[:m] = pairs[:m, 0], pairs[:m, 1]
+    lp = rng.integers(0, L, n)
+    lp[::5] = L - 1
+    return tuple(torch.as_tensor(v.astype(np.int32), device=dev)
+                 for v in (lp, y, x))
+
+
+def check_window_branches(torch, planes, win: int) -> None:
+    """K8 bit for bit against its plain version and against one
+    advanced-indexing call on origins that reach every branch of its
+    kernel (:func:`window_branches`), on each of ``planes`` and on a
+    3x67x301 plane whose base lies 4 bytes past a 16-byte boundary (rows
+    of every shift): the two call shapes through their wrappers, and
+    gather_windows at other widths (win 120's rows, a 384-column aligned
+    window, a partial second chunk, 7 columns), for 0, 1, 37 and 2311
+    (prime) rows."""
+    from popsift_torch.kernels import windows
+    dev = planes[0].device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    odd = torch.rand(1 + 3 * 67 * 301, generator=gen, device=dev)[1:] \
+        .view(3, 67, 301)
+    shapes = (windows.rolled_window_dims(win), windows.aligned_window_dims(win),
+              windows.rolled_window_dims(120), (120, 384), (56, 200), (9, 7))
+    total: dict = {}
+    for pi, plane in enumerate((*planes, odd)):
+        L, H, W = plane.shape
+        for si, (wy, wx) in enumerate(shapes):
+            for n in (0, 1, 37, 2311):
+                lp, oy, ox = branch_origins(torch, L, H, W, wy, wx, n,
+                                            100 * pi + 10 * si + n, dev)
+                k = windows.gather_windows(plane, lp, oy, ox, wy, wx)
+                p = windows.gather_windows_plain(plane, lp, oy, ox, wy, wx)
+                require(k.shape == (n, wy, wx) and torch.equal(k, p),
+                        f"K8 ({wy}x{wx}, {n} rows, plane {H}x{W}): kernel "
+                        f"!= plain on the branch origins")
+                if n:
+                    require(torch.equal(k, plane[window_index(
+                        torch, plane, lp, oy, ox, wy, wx)]),
+                        f"K8 ({wy}x{wx}, {n} rows, plane {H}x{W}): "
+                        f"advanced indexing differs")
+                for key, v in window_branches(torch, plane, lp, oy, ox, wy,
+                                              wx).items():
+                    total[key] = total.get(key, 0) + v
+        lp, oy, ox = branch_origins(torch, L, H, W, 120, 128, 2311, pi, dev)
+        for form, call in (("exact", windows.gather_windows_exact),
+                           ("aligned", windows.gather_windows_aligned)):
+            k, *org = call(plane, lp, oy, ox, win)
+            ya, xa = (org[0], ox) if form == "exact" else org
+            wy, wx = k.shape[1:]
+            require(torch.equal(k, windows.gather_windows_plain(
+                plane, lp, ya, xa, wy, wx)) and torch.equal(
+                k, plane[window_index(torch, plane, lp, ya, xa, wy, wx)]),
+                f"K8 ({form}, plane {H}x{W}): kernel != plain on the "
+                f"branch origins")
+    try:
+        windows.gather_windows(planes[0], lp[:2], lp, lp, 8, 8)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K8 took origin vectors of unequal lengths")
+    print("  K8 on the branch origins, bit-equal to its plain version and "
+          "to advanced indexing: " + ", ".join(f"{k} {v}" for k, v in
+                                               total.items()), flush=True)
+    require(all(total.values()), "K8: the branch origins missed a branch")
+
+
+def check_windows_and_grid(torch, plan, stack, stack0, ob: int, rows,
+                           table: Table) -> None:
+    """K8, which no path launches since K9, K12 and K13 read its windows
+    from the stack, on origins that reach every branch of its kernel, and
+    in both call shapes on the descriptor rows of the busiest octave
+    ``ob`` (``stack``) and on the same rows at octave 0's scale
+    (``stack0``, which does not fit in L2); then K9, K12 and K13 on those
+    rows, as the NoTile path gives them."""
     from popsift_torch.kernels import windows
 
     xs, ys, lps, sg, an = rows
-    L, h, w = stack.shape
     win = plan.desc_win
     n = int(xs.shape[0])
-    lps = lps.clamp(0, L - 1)
-    x0 = torch.round(xs).to(torch.int32) - win // 2
-    y0 = torch.round(ys).to(torch.int32) - win // 2
-
-    def union(ya, xa, wy, wx):
-        return box_union_pixels(
-            lps, xa.clamp(0, w - 1), (xa + wx - 1).clamp(0, w - 1),
-            ya.clamp(0, h - 1), (ya + wy - 1).clamp(0, h - 1), L, h, w)
-
-    wk, ya = windows.gather_windows_exact(stack, lps, y0, x0, win)
-    aw, aya, axa = windows.gather_windows_aligned(stack, lps, y0, x0, win)
-    shapes = (("aligned", aya, axa, windows.aligned_window_dims(win), aw),
-              (None, ya, x0, windows.rolled_window_dims(win), wk))
-    for sub, oy, ox, (wy, wx), k in shapes:
-        p = windows.gather_windows_plain(stack, lps, oy, ox, wy, wx)
-        form = sub or "exact"
-        require(torch.equal(k, p), f"K8 ({form}): kernel != plain")
-        ms = kernel_ms(lambda: windows.gather_windows(stack, lps, oy, ox, wy,
-                                                      wx))
-        pms = cuda_ms(lambda: windows.gather_windows_plain(
-            stack, lps, oy, ox, wy, wx), reps=10)
-        # the library yardstick: one advanced-indexing call, its index
-        # tensors built outside the timed region
-        li = lps.long()[:, None, None]
-        yi = (oy.long()[:, None] + torch.arange(wy, device=stack.device)
-              ).clamp(0, h - 1)[:, :, None]
-        xi = (ox.long()[:, None] + torch.arange(wx, device=stack.device)
-              ).clamp(0, w - 1)[:, None, :]
-        require(torch.equal(stack[li, yi, xi], k),
-                f"K8 ({form}): advanced indexing differs")
-        lib_ms = cuda_ms(lambda: stack[li, yi, xi])
-        table.add("gather_windows", f"K8 gather_windows ({form}) {n} x "
-                  f"({wy},{wx})", max_abs(k, p), ms, pms,
-                  4 * union(oy, ox, wy, wx) + 4 * n * wy * wx + 12 * n, 0,
-                  library_ms=lib_ms, sub=sub)
+    check_window_branches(torch, (stack, stack0), win)
+    for st, scale, tag, subs in (
+            (stack0, 2 ** ob, "octave 0", ("exact_octave0", "aligned_octave0")),
+            (stack, 1, f"octave {ob}", (None, "aligned"))):
+        L, h, w = st.shape
+        lp = lps.clamp(0, L - 1).to(torch.int32)
+        x0 = torch.round(xs * scale).to(torch.int32) - win // 2
+        y0 = torch.round(ys * scale).to(torch.int32) - win // 2
+        wk, ya = windows.gather_windows_exact(st, lp, y0, x0, win)
+        aw, aya, axa = windows.gather_windows_aligned(st, lp, y0, x0, win)
+        for sub, oy, ox, k in ((subs[1], aya, axa, aw),
+                               (subs[0], ya, x0, wk)):
+            wy, wx = k.shape[1:]
+            form = "aligned" if k is aw else "exact"
+            p = windows.gather_windows_plain(st, lp, oy, ox, wy, wx)
+            require(torch.equal(k, p), f"K8 ({form}, {tag}): kernel != "
+                    f"plain")
+            ms = kernel_ms(lambda: windows.gather_windows(st, lp, oy, ox, wy,
+                                                          wx))
+            pms = cuda_ms(lambda: windows.gather_windows_plain(
+                st, lp, oy, ox, wy, wx), reps=10)
+            # the library yardstick: one advanced-indexing call, its index
+            # tensors built outside the timed region
+            idx = window_index(torch, st, lp, oy, ox, wy, wx)
+            require(torch.equal(st[idx], k),
+                    f"K8 ({form}, {tag}): advanced indexing differs")
+            lib_ms = cuda_ms(lambda: st[idx])
+            nbytes = gather_bytes(st, lp, oy, ox, wy, wx)
+            table.add("gather_windows", f"K8 gather_windows ({form}, {tag} "
+                      f"{h}x{w}) {n} x ({wy},{wx})", max_abs(k, p), ms, pms,
+                      nbytes, 0, library_ms=lib_ms, sub=sub)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            share = ("not measured" if ms[1] is None
+                     else f"{100.0 * bound / ms[1]:.1f}%")
+            print(f"  K8 ({form}, {tag}): {share} of its bound on the device "
+                  f"({100.0 * bound / ms[0]:.1f}% by events)", flush=True)
 
     nbytes = footprint_bytes(stack, rows, win)
     check_stack_descriptors(torch, plan, stack, rows, nbytes, table)
@@ -3272,7 +3425,7 @@ def main() -> int:
                  ("octave_chain", "desc_loop", "sep_blur", "blur_chain",
                   "detect", "ori_peaks", "refine", "compact",
                   "desc_grid_stack", "desc_grid_rounded_stack",
-                  "desc_iloop_stack"))
+                  "desc_iloop_stack", "gather_windows"))
 
     t_scene = time.perf_counter()
     scenes = [make_scene(seed, 1080, 1920) for seed in range(4)]

@@ -16,6 +16,10 @@ import torch
 
 from . import _lib
 
+# A work item of the kernel: a band of ITEM_ROWS rows by a chunk of
+# ITEM_COLS columns of one window (csrc/windows.cu: kRows, kChunk).
+ITEM_ROWS, ITEM_COLS = 8, 128
+
 
 def rolled_window_dims(win: int) -> tuple[int, int]:
     """(rows, cols) of an exact-origin window (windows2.py:27-29)."""
@@ -50,8 +54,11 @@ def gather_windows(plane: torch.Tensor, lpos, ya, xa, wy: int,
     if plane.device.type == "cpu":
         return gather_windows_plain(plane, lpos, ya, xa, wy, wx)
     dev = _lib.check_cuda("gather_windows", plane)
+    # no copy of origins that are contiguous int32 on the card already
     lpos, ya, xa = (v.to(device=dev, dtype=torch.int32).contiguous()
                     for v in (lpos, ya, xa))
+    if lpos.dim() != 1 or ya.shape != lpos.shape or xa.shape != lpos.shape:
+        raise ValueError("gather_windows takes three (n,) origin vectors")
     n = int(lpos.shape[0])
     out = torch.empty((n, wy, wx), dtype=torch.float32, device=dev)
     if n:

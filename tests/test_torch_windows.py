@@ -122,3 +122,90 @@ def test_plain_gather_is_clamp_addressing():
     with pytest.raises(ValueError):
         twin.gather_windows(torch.as_tensor(plane[0]), torch.as_tensor(lp),
                             torch.as_tensor(ya), torch.as_tensor(xa), 9, 7)
+
+
+def _edge_origins(H, W, wy, wx):
+    """Every pairing of window rows and columns inside the plane, across
+    each edge and corner, and wholly outside it, as far as the JAX
+    callers' pad reaches (dynamic_slice would clamp an origin beyond it)."""
+    ys = [-PAD_Y, -(wy // 2), -1, 0, 1, 2, 3, H - wy, H - wy // 2, H - 1,
+          H + PAD_Y - wy]
+    xs = [-PAD_X, -(wx // 2), -1, 0, 1, 2, 3, W - wx, W - wx + 1,
+          W - wx // 2, W - 1, W + PAD_X - wx]
+    ys = sorted({min(max(y, -PAD_Y), H + PAD_Y - wy) for y in ys})
+    xs = sorted({min(max(x, -PAD_X), W + PAD_X - wx) for x in xs})
+    y0, x0 = np.array([(y, x) for y in ys for x in xs], np.int32).T
+    lp = np.arange(y0.shape[0], dtype=np.int32) % 3
+    lp[::5] = 2  # the last level
+    return lp, y0.copy(), x0.copy()
+
+
+def _padded(plane):
+    return jnp.pad(jnp.asarray(plane),
+                   ((0, 0), (PAD_Y, PAD_Y), (PAD_X, PAD_X)), mode="edge")
+
+
+def _exact_pair(plane, lp, y0, x0, win):
+    jw, jya = jwin2.gather_windows_exact(
+        _padded(plane), jnp.asarray(lp), jnp.asarray(y0 + PAD_Y),
+        jnp.asarray(x0 + PAD_X), win)
+    tw, tya = twin.gather_windows_exact(
+        torch.as_tensor(plane), torch.as_tensor(lp), torch.as_tensor(y0),
+        torch.as_tensor(x0), win)
+    np.testing.assert_array_equal(tya.numpy(), np.asarray(jya) - PAD_Y)
+    assert tw.shape == (y0.shape[0], *twin.rolled_window_dims(win))
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+
+
+def _aligned_pair(plane, lp, y0, x0, win):
+    jw, jya, jxa = jwin.gather_windows_aligned(
+        _padded(plane), jnp.asarray(lp), jnp.asarray(y0 + PAD_Y),
+        jnp.asarray(x0 + PAD_X), win)
+    tw, tya, txa = twin.gather_windows_aligned(
+        torch.as_tensor(plane), torch.as_tensor(lp), torch.as_tensor(y0),
+        torch.as_tensor(x0), win)
+    np.testing.assert_array_equal(tya.numpy(), np.asarray(jya) - PAD_Y)
+    np.testing.assert_array_equal(txa.numpy(), np.asarray(jxa) - PAD_X)
+    assert tw.shape == (y0.shape[0], *twin.aligned_window_dims(win))
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    return tw, jya, jxa
+
+
+@pytest.mark.parametrize("win", [112, 120, 48])
+def test_exact_windows_on_edge_and_corner_origins(win):
+    """The exact call shape on origins across every edge and corner of a
+    plane whose rows are not a multiple of 4 floats; win 120 gives the
+    widest exact window, (128, 128)."""
+    plane = _plane(3, 150, 301, seed=win + 11)
+    wy, wx = twin.rolled_window_dims(win)
+    lp, y0, x0 = _edge_origins(150, 301, wy, wx)
+    _exact_pair(plane, lp, y0, x0, win)
+
+
+@pytest.mark.parametrize("win", [112, 136])
+def test_aligned_windows_on_edge_and_corner_origins(win):
+    """The aligned call shape on the same kind of origins; win 136 gives a
+    384-column window.  For win 112 also the Pallas kernel in interpret
+    mode."""
+    plane = _plane(3, 150, 420, seed=win + 13)
+    wy, wx = twin.aligned_window_dims(win)
+    assert wx == {112: 256, 136: 384}[win]
+    lp, y0, x0 = _edge_origins(150, 420, wy, wx)
+    tw, jya, jxa = _aligned_pair(plane, lp, y0, x0, win)
+    if win == 112:
+        kw = jwin.gather_windows_aligned_pallas(
+            _padded(plane), jnp.asarray(lp), jya, jxa, win, interpret=True)
+        np.testing.assert_array_equal(tw.numpy(), np.asarray(kw))
+
+
+@pytest.mark.parametrize("n", [0, 1])
+@pytest.mark.parametrize("form", ["exact", "aligned"])
+def test_empty_and_one_row_batches(form, n):
+    """No rows and one row (at the plane's bottom-right corner, last
+    level) in both call shapes."""
+    plane = _plane(3, 64, 200, seed=17)
+    lp = np.full(n, 2, np.int32)
+    y0 = np.full(n, 64 - 20, np.int32)
+    x0 = np.full(n, 200 - 30, np.int32)
+    (_exact_pair if form == "exact" else _aligned_pair)(plane, lp, y0, x0,
+                                                        112)

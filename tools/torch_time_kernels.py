@@ -7,7 +7,7 @@ two trees on the same card.
 by default); run the tool in turns for two checkouts (A, B, B, A) in one
 run on the card, the parent unpacked with ``git archive`` into
 ``build/popsift_torch/``.  ``--kernels`` picks from K1, K2, K1K2, K3, K4,
-K5, K10, K7, K6, K11, K9, K12, K13 and ops (all by default).  It uses only
+K5, K10, K7, K6, K11, K8, K9, K12, K13 and ops (all by default).  It uses only
 functions that every version of the port since K1's chain entry
 (``blur_chain``) has, on chip_smoke.py's seed-0 1080p scene:
 
@@ -22,7 +22,7 @@ functions that every version of the port since K1's chain entry
   has it, else the chain entry followed by K2; per octave and summed,
   with a digest of the three outputs (equal digests: bit-identical), by
   events (the median and the least of 100 calls), device time and host
-  time (``k1k2_times``);
+  time (``call_times``);
 - K3: every octave;
 - K4: refinement and compaction at the busiest octave, as
   ``extract.octave_keypoints`` less detection and the candidates'
@@ -32,6 +32,12 @@ functions that every version of the port since K1's chain entry
   peaks, whatever runs them);
 - K7: octave 0, both emit forms;
 - K6 and K11: the descriptor rows of the busiest octave;
+- K8: ``windows.gather_windows`` in both call shapes (exact: (120, 128)
+  windows at the rows' own x origin; aligned: (120, 256) windows at x a
+  multiple of 128) at those rows' origins, at the busiest octave and, at
+  octave 0's scale, on octave 0's stack (which does not fit in L2), with
+  a digest of each output, by ``call_times`` and beside the bound
+  (``chip_smoke.gather_bytes``);
 - K9, K12 and K13: the NoTile, Grid and ILoop descriptor steps on the
   same rows, through ``ops/descriptors.py:grid_descriptors_windowed``,
   ``grid_rounded_descriptors_windowed`` and ``iloop_descriptors_windowed``
@@ -67,7 +73,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parents[1]
 KERNELS = ("K1", "K2", "K1K2", "K3", "K4", "K5", "K10", "K7", "K6", "K11",
-           "K9", "K12", "K13", "ops")
+           "K8", "K9", "K12", "K13", "ops")
 
 
 def library_spans(torch, fn, calls: int) -> list[float]:
@@ -103,7 +109,7 @@ def device_ms(torch, fn, reps: int) -> tuple[float, int]:
                          f"{reps} calls of {per_call}, three times")
 
 
-def k1k2_times(torch, fn, reps: int = 100, bursts: int = 5):
+def call_times(torch, fn, reps: int = 100, bursts: int = 5):
     """(events median, events least, device, host) ms of one call: the
     median and the least of ``reps`` calls between CUDA events, the mean
     device time, and the least over ``bursts`` bursts of ``reps`` calls
@@ -128,6 +134,33 @@ def k1k2_times(torch, fn, reps: int = 100, bursts: int = 5):
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) / reps * 1e3)
     return np.array([np.median(times), min(times), dms, min(host)])
+
+
+def time_windows(torch, cs, rows, win: int, octaves) -> None:
+    """K8 in both call shapes on ``rows``' window origins, for each
+    (octave, stack, scale) of ``octaves``: the rows' positions times
+    ``scale`` on that stack."""
+    from popsift_torch.kernels import windows
+    xs, ys, lps = rows[:3]
+    for o, st, scale in octaves:
+        L = st.shape[0]
+        lp = lps.clamp(0, L - 1).to(torch.int32)
+        x0, ya = windows.window_origins(xs * scale, ys * scale, win)
+        xa = torch.div(x0, 128, rounding_mode="floor") * 128
+        for form, ox, (wy, wx) in (
+                ("exact", x0, windows.rolled_window_dims(win)),
+                ("aligned", xa, windows.aligned_window_dims(win))):
+            def fn():
+                return windows.gather_windows(st, lp, ya, ox, wy, wx)
+            digest = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()
+            bound = cs.gather_bytes(st, lp, ya, ox, wy, wx) \
+                / cs.HBM_BYTES_PER_S * 1e3
+            t = call_times(torch, fn)
+            print(f"K8 {form} octave {o} {tuple(st.shape)}, {lp.shape[0]} x "
+                  f"({wy},{wx}), sha256 {digest[:16]}: events median "
+                  f"{t[0]:.6f} ms, least {t[1]:.6f}; device {t[2]:.6f} ms "
+                  f"({100.0 * bound / t[2]:.1f}% of the bound {bound:.6f}); "
+                  f"host {t[3]:.6f} ms a call", flush=True)
 
 
 def main() -> int:
@@ -230,7 +263,7 @@ def main() -> int:
             h = hashlib.sha256()
             for t in with_field(lvl):
                 h.update(t.cpu().numpy().tobytes())
-            times = k1k2_times(torch, lambda: with_field(lvl))
+            times = call_times(torch, lambda: with_field(lvl))
             print(f"K1K2 octave {o} {tuple(st.shape)}, {form}, sha256 "
                   f"{h.hexdigest()[:16]}: events median {times[0]:.6f} ms, "
                   f"least {times[1]:.6f}; device {times[2]:.6f} ms; host "
@@ -272,7 +305,7 @@ def main() -> int:
                    f"from the stack",
                    lambda: ops_ori.assign_orientations(None, *kp,
                                                        stack=stack))
-    if {"K6", "K11", "K9", "K12", "K13"} & set(want):
+    if {"K6", "K11", "K8", "K9", "K12", "K13"} & set(want):
         _, o, stack, ex = best
         field = grad.grad_field(stack)
         num_ori, oris = ops_ori.assign_orientations(field, ex.xpos, ex.ypos,
@@ -283,6 +316,9 @@ def main() -> int:
             + (ang.contiguous(),)
         half = plan.desc_win // 2
         n = int(feat.shape[0])
+        if "K8" in want:
+            time_windows(torch, cs, rows, plan.desc_win,
+                         ((o, stack, 1), (0, octaves[0][0], 2 ** o)))
         if "K6" in want:
             report(f"K6 octave {o}, {n} rows",
                    lambda: binwin.desc_loop(field, *rows, half), 50)
