@@ -254,6 +254,9 @@ class Config:
     def get_filter_grid_size(self) -> int:
         return self.filter_grid_size
 
+    def get_can_filter_extrema(self) -> bool:
+        return True
+
     def scaled_dims(self, w: int, h: int) -> tuple[int, int]:
         """Octave-0 dimensions after upscaling (popsift.cpp:109-126)."""
         scale_factor = 2.0 ** self.upscale_factor

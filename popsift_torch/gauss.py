@@ -71,6 +71,10 @@ class GaussTable:
     span: np.ndarray    # (levels,) i32
     filter: np.ndarray  # (levels, GAUSS_ALIGN) f32
 
+    @property
+    def max_span(self) -> int:
+        return int(self.span.max())
+
 
 def _build_table(mode: GaussMode, sigmas: list[float]) -> GaussTable:
     spans, filters = [], []

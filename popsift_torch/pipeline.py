@@ -45,7 +45,7 @@ from .debugdump import dump_all
 # Shape preflight (the reference checks texture limits,
 # popsift.cpp:168-196; here the octave-0 stack must fit device memory)
 from .device import MAX_INPUT_DIM, MAX_OCTAVE0_PIXELS
-from .extract import extract_features
+from .extract import extract_features, normalize_input
 from .features import FeaturesBase, FeaturesDev, FeaturesHost
 from .tracing import host_trace, host_trace_summary
 
@@ -62,7 +62,9 @@ class SiftJob:
     """Async extraction job (popsift.h:44-100).  The constructor copies
     the image so the caller's buffer can be reused at once.  A failed job
     holds None and its error: ``get_base`` returns None, ``get_host`` and
-    ``get_dev`` raise the error (popsift_tpu/pipeline.py:86-108)."""
+    ``get_dev`` raise the error (popsift_tpu/pipeline.py:86-108).
+    ``get_img`` is the image the worker uploaded to the pipeline's device
+    (SiftJob::setImg): None before the upload and after a failed one."""
 
     def __init__(self, w: int, h: int, image_data: np.ndarray,
                  config: Config) -> None:
@@ -71,7 +73,14 @@ class SiftJob:
         self._image_data = np.array(image_data, copy=True).reshape(h, w)
         self._config = config
         self._err: BaseException | None = None
+        self._device_image: torch.Tensor | None = None
         self._f: Future = Future()
+
+    def set_img(self, device_image: torch.Tensor | None) -> None:
+        self._device_image = device_image
+
+    def get_img(self) -> torch.Tensor | None:
+        return self._device_image
 
     def set_features(self, f: FeaturesBase | None) -> None:
         self._f.set_result(f)
@@ -119,6 +128,15 @@ def _device(device) -> torch.device:
         raise ValueError(f"PopSift(device={device!r}): a CUDA device or "
                          f"'cpu'")
     return dev
+
+
+def upload_image(image: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The job's image on ``device`` as the JAX pipeline uploads it
+    (popsift_tpu/pipeline.py:369-376): bytes as they are, other input
+    normalised on the host first."""
+    if image.dtype != np.uint8:
+        image = normalize_input(image)
+    return torch.from_numpy(np.ascontiguousarray(image)).to(device)
 
 
 class PopSift:
@@ -258,7 +276,8 @@ class PopSift:
             if job is None:
                 return
             try:
-                feats = extract_features(job._image_data, job._config,
+                job.set_img(upload_image(job._image_data, self._device))
+                feats = extract_features(job.get_img(), job._config,
                                          self._device, want_dev=want_dev)
                 if (not want_dev
                         and job._config.log_mode == LogMode.ALL):

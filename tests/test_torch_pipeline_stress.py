@@ -139,9 +139,11 @@ def failing_frame(monkeypatch):
     lock = threading.Lock()
 
     def extract(image, *args, want_dev=False, **kwargs):
-        if np.array_equal(image, bad):
+        # the worker passes the image it uploaded (SiftJob.get_img)
+        arr = np.asarray(image)
+        if np.array_equal(arr, bad):
             raise RuntimeError("injected extraction failure")
-        key = (image.tobytes(), image.shape, want_dev)
+        key = (arr.tobytes(), arr.shape, want_dev)
         with lock:
             if key not in done:
                 done[key] = real(image, *args, want_dev=want_dev, **kwargs)
