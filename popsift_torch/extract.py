@@ -10,10 +10,16 @@ octave (:func:`octave_features`), which :func:`extract_features`
 assembles.  They read the candidate, extremum and orientation counts back
 to the host between stages (shapes are dynamic on the GPU, so there are
 no compile buckets).  Each phase runs in a :func:`~popsift_torch.tracing.scope`
-(pyramid, detect, filter, orientation, descriptors, download, assemble),
-and with ``POPSIFT_TPU_HOSTTRACE=1`` the extraction, each octave's two
-stages, the filter and the assembly are host spans, with the counts read
-back per image as series.
+(pyramid, detect, filter, orientation, descriptors, download, assemble).
+With the host-span recorder on (``POPSIFT_TPU_HOSTTRACE=1`` or
+``tracing.enable()``) the extraction (``extract``), each octave's two
+stages (``stage1.o<k>``, ``stage2.o<k>``) and each scope are host spans
+on the profiler's clock, under the job's request when a pipeline worker
+runs it; every point where the host waits for the card is a
+``readback.<site>`` span inside them (``rows`` and ``download`` here,
+``compact`` and ``refine_status`` in the compaction and K4's wrapper,
+``recompact`` in the grid filter); the candidate, extremum and
+descriptor counts are series.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from .ops import extrema as ops_ext
 from .ops import filtergrid as ops_fg
 from .ops import orientation as ops_ori
 from .ops import pyramid as ops_pyr
-from .tracing import host_trace, scope, span_key
+from . import tracing
+from .tracing import scope
 
 
 def _round_up(x: int, m: int) -> int:
@@ -172,10 +179,16 @@ def descriptor_rows(plan: ExtractorPlan, o: int, num_ori: torch.Tensor,
     dev = num_ori.device
     n = num_ori.shape[0]
     incl = torch.cumsum(num_ori.to(torch.int64), 0)
+    sp = tracing.begin("readback.rows") if tracing.HOSTTRACE and n else None
     total = int(incl[-1]) if n else 0
+    if sp is not None:
+        tracing.end(sp)
     rows = min(total, plan.ori_caps[o])
+    sp = tracing.begin("readback.rows") if tracing.HOSTTRACE and n else None
     feat = torch.repeat_interleave(torch.arange(n, device=dev),
                                    num_ori.to(torch.int64))[:rows]
+    if sp is not None:
+        tracing.end(sp)
     first = incl - num_ori.to(torch.int64)
     k = torch.arange(rows, device=dev) - first[feat]
     ang = orientations[feat, k]
@@ -197,10 +210,11 @@ def quantize_descs(desc: torch.Tensor, mode: str, norm_multi: int):
     """Rounding of Config.desc_transfer (staged.py:_quantize_descs) and
     back to float32, as the user receives the descriptors."""
     if mode == "f32":
-        return desc.cpu().numpy()
+        return tracing.to_host(desc, "readback.download")
     q, step = _quantize(desc, mode, norm_multi)
     dt = np.uint16 if mode == "u16" else np.uint8
-    return q.cpu().numpy().astype(dt).astype(np.float32) * step
+    return (tracing.to_host(q, "readback.download").astype(dt)
+            .astype(np.float32) * step)
 
 
 def quantize_descs_dev(desc: torch.Tensor, mode: str,
@@ -271,10 +285,11 @@ def octave_features(plan: ExtractorPlan, o: int, stack, ext,
         else:
             desc = ops_desc.normalize_l2(desc, plan.norm_multi)
     with scope("download", dev):
-        return dict(x=ext.xpos.cpu().numpy(), y=ext.ypos.cpu().numpy(),
-                    sigma=ext.sigma.cpu().numpy(),
-                    num_ori=num_eff.cpu().numpy(),
-                    orientations=oris.cpu().numpy(),
+        x, y, sigma, num_eff, oris = (
+            tracing.to_host(t, "readback.download")
+            for t in (ext.xpos, ext.ypos, ext.sigma, num_eff, oris))
+        return dict(x=x, y=y, sigma=sigma, num_ori=num_eff,
+                    orientations=oris,
                     desc=(quantize_descs_dev if want_dev else quantize_descs)(
                         desc, desc_transfer, plan.norm_multi),
                     overflow=ext.overflow, ori_count=total)
@@ -304,10 +319,9 @@ def octave_keypoints_all(plan: ExtractorPlan, gauss, img: torch.Tensor,
     ``dogs`` is a list, which then receives them."""
     out = []
     src = img
-    key = span_key()
     n_cands = n_ext = 0
     for o in range(plan.octaves):
-        host_trace(f"stage1.o{o}.start", key)
+        sp = tracing.begin(f"stage1.o{o}") if tracing.HOSTTRACE else None
         with scope("pyramid", img.device):
             stack, src, dog, field = ops_pyr.octave_outputs(
                 src, o, plan.dims, plan.levels, gauss, plan.sift_mode,
@@ -316,15 +330,17 @@ def octave_keypoints_all(plan: ExtractorPlan, gauss, img: torch.Tensor,
                 image=img)
         with scope("detect", img.device):
             cands, ext = octave_keypoints(plan, o, dog)
-        host_trace(f"stage1.o{o}.end", key)
+        if sp is not None:
+            tracing.end(sp)
         n_cands += cands.count
         n_ext += ext.count
         out.append((stack, field, ext))
         if dogs is not None:
             dogs.append(dog)
         del dog
-    host_trace("candidates", key, n=n_cands)
-    host_trace("extrema", key, n=n_ext)
+    if tracing.HOSTTRACE:
+        tracing.host_trace("candidates", None, n=n_cands)
+        tracing.host_trace("extrema", None, n=n_ext)
     return out
 
 
@@ -355,11 +371,8 @@ def image_keypoints(plan: ExtractorPlan, gauss, img: torch.Tensor,
     dogs = [] if return_pyramid else None
     stage1 = octave_keypoints_all(plan, gauss, img, full_stacks,
                                   need_field=not stack_kernels, dogs=dogs)
-    key = span_key()
-    host_trace("filter.start", key)
     with scope("filter", img.device):
         exts = filter_extrema(plan, [e for _, _, e in stage1])
-    host_trace("filter.end", key)
     return ([(s, f, e) for (s, f, _), e in zip(stage1, exts)], dogs)
 
 
@@ -392,20 +405,21 @@ def extract_octaves(image, config: Config, plan: ExtractorPlan, device,
     stage1, dogs = image_keypoints(plan, build_gauss_info(config), img,
                                    stack_kernels, return_pyramid)
     stacks = [s for s, _, _ in stage1] if return_pyramid else None
-    key = span_key()
     octaves = []
     for o in range(plan.octaves):
         stack, field, ext = stage1[o]
         stage1[o] = None          # free the octave once it is done
         if ks is not None:
             ext = _first(ext, ks[o])
-        host_trace(f"stage2.o{o}.start", key)
+        sp = tracing.begin(f"stage2.o{o}") if tracing.HOSTTRACE else None
         octaves.append(octave_features(
             plan, o, stack, ext, config.desc_transfer, field=field,
             consts=consts, stack_kernels=stack_kernels, want_dev=want_dev))
-        host_trace(f"stage2.o{o}.end", key)
-    host_trace("descriptors", key,
-               n=sum(int(od["desc"].shape[0]) for od in octaves))
+        if sp is not None:
+            tracing.end(sp)
+    if tracing.HOSTTRACE:
+        tracing.host_trace("descriptors", None,
+                           n=sum(int(od["desc"].shape[0]) for od in octaves))
     return octaves, stacks, dogs
 
 
@@ -422,24 +436,27 @@ def extract_features(image, config: Config, device="cuda",
     (features, stacks, dogs): per octave its whole (L+3, H, W) stack and
     (L+2, H, W) DoG on ``device`` (popsift_tpu extract_pipeline with
     return_pyramid).  Chain octaves then emit their whole stack, whose
-    features are the same bit for bit."""
-    key = span_key()
-    host_trace("extract.start", key)
-    check_supported(config)
-    h, w = np.shape(image)
-    plan = make_plan(config, w, h)
-    octaves, stacks, dogs = extract_octaves(
-        image, config, plan, device, want_dev=want_dev,
-        return_pyramid=return_pyramid)
-    host_trace("assemble.start", key)
-    with scope("assemble", device):
-        if want_dev:
-            feats = assemble_features_dev(octaves, plan.upscale_factor,
-                                          device)
-        else:
-            feats = assemble_features(octaves, plan.upscale_factor)
-    host_trace("assemble.end", key)
-    host_trace("extract.end", key)
+    features are the same bit for bit.
+
+    With the recorder on, the call is an ``extract`` host span, closed
+    also when the extraction raises."""
+    sp = tracing.begin("extract") if tracing.HOSTTRACE else None
+    try:
+        check_supported(config)
+        h, w = np.shape(image)
+        plan = make_plan(config, w, h)
+        octaves, stacks, dogs = extract_octaves(
+            image, config, plan, device, want_dev=want_dev,
+            return_pyramid=return_pyramid)
+        with scope("assemble", device):
+            if want_dev:
+                feats = assemble_features_dev(octaves, plan.upscale_factor,
+                                              device)
+            else:
+                feats = assemble_features(octaves, plan.upscale_factor)
+    finally:
+        if sp is not None:
+            tracing.end(sp)
     if return_pyramid:
         return feats, stacks, dogs
     return feats

@@ -21,6 +21,7 @@ import threading
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import SiftMode
 from ..ops.extrema import Candidates, Extrema, compact_extrema
 from . import _lib
@@ -301,7 +302,8 @@ def refine_compact(dog: torch.Tensor, cands: Candidates, p: RefineParams,
     candidate order, clamped at ``cap``: :func:`refine` and
     ops/extrema.py:compact_extrema in one call of two kernels, which
     returns when the count and overflow are on the host (the one
-    synchronisation)."""
+    synchronisation: the call, its two launches included, is a
+    ``readback.refine_status`` host span when the recorder is on)."""
     _check_dog("refine", dog, p)
     if cap < 1:
         raise ValueError("refine_compact: cap must be at least 1")
@@ -323,9 +325,13 @@ def refine_compact(dog: torch.Tensor, cands: Candidates, p: RefineParams,
     buf = torch.empty(5 * m + 6 * n + -(-n // 32), dtype=torch.int32,
                       device=dev)
     status, words = _status_buffer()
+    sp = (tracing.begin("readback.refine_status") if tracing.HOSTTRACE
+          else None)
     _lib.call("refine_compact", dev, dog.data_ptr(), zyx.data_ptr(), n,
               ctypes.addressof(_params_c(p)), cap, buf.data_ptr(),
               status.data_ptr(), count_as="refine")
+    if sp is not None:
+        tracing.end(sp)
     count, overflow = words
     ints = buf.as_strided((5, count), (m, 1))
     xpos, ypos, _, sigma, _ = ints.view(torch.float32).unbind(0)

@@ -8,7 +8,9 @@ Shapes are dynamic here: candidate and extremum lists hold exactly the
 kept entries, in raster (z, y, x) order, clamped at the plan's capacities
 with the number dropped reported as ``overflow`` (the reference clamps
 to max_extrema the same way, s_extrema.cu:549-557).  Candidates also
-pass the JAX package's per-block survivor budget first.
+pass the JAX package's per-block survivor budget first.  The counts are
+read back to the host, each a ``readback.compact`` or (the plain K4
+compaction) ``readback.refine_status`` host span when the recorder is on.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import threading
 from typing import NamedTuple
 
 import torch
+
+from .. import tracing
 
 # popsift_tpu/ops/extrema.py: compact_mask keeps at most PER_BLOCK set
 # positions of each BLOCK-voxel run of the flattened (z, y, x) mask
@@ -80,7 +84,10 @@ def compact_mask(mask: torch.Tensor, cap: int) -> Candidates:
     PER_BLOCK of each BLOCK-voxel run of the flattened mask, then clamped
     at ``cap`` (compact_mask of the JAX package).  ``overflow`` counts
     every set position not returned, the budget's and the cap's."""
+    sp = tracing.begin("readback.compact") if tracing.HOSTTRACE else None
     nz = torch.nonzero(mask)                 # (total, 3), raster order
+    if sp is not None:
+        tracing.end(sp)
     total = int(nz.shape[0])
     if total > PER_BLOCK:
         _, h, w = mask.shape
@@ -88,10 +95,18 @@ def compact_mask(mask: torch.Tensor, cap: int) -> Candidates:
         # in raster order a position is its block's PER_BLOCK-th or later
         # exactly when the position PER_BLOCK before it is in the same block
         over = block[PER_BLOCK:] == block[:-PER_BLOCK]
-        if bool(over.any()):
+        sp = tracing.begin("readback.compact") if tracing.HOSTTRACE else None
+        any_over = bool(over.any())
+        if sp is not None:
+            tracing.end(sp)
+        if any_over:
             keep = torch.ones(total, dtype=torch.bool, device=nz.device)
             keep[PER_BLOCK:] = ~over
-            nz = nz[keep]
+            sp = (tracing.begin("readback.compact") if tracing.HOSTTRACE
+                  else None)
+            nz = nz[keep]              # boolean indexing reads a count
+            if sp is not None:
+                tracing.end(sp)
     kept = int(nz.shape[0])
     _tally(total - kept)
     count = min(kept, cap)
@@ -101,7 +116,11 @@ def compact_mask(mask: torch.Tensor, cap: int) -> Candidates:
 
 def compact_extrema(xn, yn, lpos, sigma, cell, ok, cap: int) -> Extrema:
     """Keep the refined survivors in candidate order, clamped at ``cap``."""
+    sp = (tracing.begin("readback.refine_status") if tracing.HOSTTRACE
+          else None)
     idx = torch.nonzero(ok).reshape(-1)
+    if sp is not None:
+        tracing.end(sp)
     total = int(idx.shape[0])
     count = min(total, cap)
     idx = idx[:count]

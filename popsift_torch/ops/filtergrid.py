@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import GridFilterMode
 from .extrema import Extrema
 
@@ -88,8 +89,11 @@ def grid_filter_keep_masks(exts: list[Extrema], budget: int, grid_size: int,
 def recompact(e: Extrema, keep: torch.Tensor) -> Extrema:
     """The extrema that ``keep`` names, in their order (the copy_if
     writeback, s_filtergrid.cu:290-318); the overflow stays the
-    extraction's."""
+    extraction's.  The count is read back (``readback.recompact``)."""
+    sp = tracing.begin("readback.recompact") if tracing.HOSTTRACE else None
     idx = torch.nonzero(keep).reshape(-1)
+    if sp is not None:
+        tracing.end(sp)
     return Extrema(xpos=e.xpos[idx], ypos=e.ypos[idx], lpos=e.lpos[idx],
                    sigma=e.sigma[idx], cell=e.cell[idx],
                    count=int(idx.shape[0]), overflow=e.overflow)

@@ -24,9 +24,16 @@ images in flight, not counts of one image.
 
 With ``log_mode=ALL`` an ExtractingMode worker writes the job's ``--log``
 dump tree into the working directory before it hands out the features
-(popsift_tpu/pipeline.py:552-557, :mod:`popsift_torch.debugdump`).  With
-``POPSIFT_TPU_HOSTTRACE=1`` each job is a host span from enqueue to done,
-and ``uninit`` prints the host trace's summary.
+(popsift_tpu/pipeline.py:552-557, :mod:`popsift_torch.debugdump`).
+
+Tracing (:mod:`popsift_torch.tracing`): ``enqueue`` gives each job its
+request number (``SiftJob.request``), and with the recorder on
+(``POPSIFT_TPU_HOSTTRACE=1`` or ``tracing.enable()``) opens the job's
+root span ``job``, which ends when a worker has finished the job, and its
+``queue`` span, which ends when a worker takes it.  The worker makes the
+job's number its thread's request, so the job's ``upload`` span (the H2D
+copy from pageable memory) and every span of its extraction carry it.
+``uninit`` prints the host trace's summary.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from .debugdump import dump_all
 from .device import MAX_INPUT_DIM, MAX_OCTAVE0_PIXELS
 from .extract import extract_features, normalize_input
 from .features import FeaturesBase, FeaturesDev, FeaturesHost
-from .tracing import host_trace, host_trace_summary
+from . import tracing
 
 
 class AllocTest(enum.Enum):
@@ -64,7 +71,9 @@ class SiftJob:
     holds None and its error: ``get_base`` returns None, ``get_host`` and
     ``get_dev`` raise the error (popsift_tpu/pipeline.py:86-108).
     ``get_img`` is the image the worker uploaded to the pipeline's device
-    (SiftJob::setImg): None before the upload and after a failed one."""
+    (SiftJob::setImg): None before the upload and after a failed one.
+    ``request`` is the number ``PopSift.enqueue`` gave the job, which its
+    host spans carry."""
 
     def __init__(self, w: int, h: int, image_data: np.ndarray,
                  config: Config) -> None:
@@ -75,6 +84,8 @@ class SiftJob:
         self._err: BaseException | None = None
         self._device_image: torch.Tensor | None = None
         self._f: Future = Future()
+        self.request: int | None = None
+        self._root = self._queued = None    # open host spans
 
     def set_img(self, device_image: torch.Tensor | None) -> None:
         self._device_image = device_image
@@ -191,7 +202,7 @@ class PopSift:
         for t in self._threads:
             t.join()
         try:
-            host_trace_summary()
+            tracing.host_trace_summary()
         except Exception as e:  # diagnostics must never fail shutdown
             print(f"[warning] host-trace summary failed: {e}",
                   file=sys.stderr)
@@ -252,7 +263,11 @@ class PopSift:
                   file=sys.stderr)
             return None
         job = SiftJob(w, h, arr, self._config)
-        host_trace("job.start", id(job))
+        job.request = tracing.new_request()
+        if tracing.HOSTTRACE:
+            job._root = tracing.begin_detached("job", job.request)
+            job._queued = tracing.begin_detached("queue", job.request,
+                                                 job._root)
         self._queue.put(job)
         return job
 
@@ -275,8 +290,14 @@ class PopSift:
             job = self._queue.get()
             if job is None:
                 return
+            tracing.set_request(job.request, job._root)
+            if job._queued is not None:
+                tracing.end(job._queued)
             try:
+                sp = tracing.begin("upload") if tracing.HOSTTRACE else None
                 job.set_img(upload_image(job._image_data, self._device))
+                if sp is not None:
+                    tracing.end(sp)
                 feats = extract_features(job.get_img(), job._config,
                                          self._device, want_dev=want_dev)
                 if (not want_dev
@@ -284,8 +305,14 @@ class PopSift:
                     dump_all(job._config, job, "pyramid",
                              device=self._device)
             except BaseException as e:  # noqa: BLE001 - reported via the job
-                host_trace("job.end", id(job))
+                self._job_done(job)
                 job.set_error(e)
             else:
-                host_trace("job.end", id(job))
+                self._job_done(job)
                 job.set_features(feats)
+
+    @staticmethod
+    def _job_done(job: SiftJob) -> None:
+        if job._root is not None:
+            tracing.end(job._root)
+        tracing.set_request(None)

@@ -12,10 +12,18 @@ CPU.
 * ``BriefDuration.report`` and the limit checks of ``DeviceProperties``
   print and return what the JAX package's do; ``set`` raises for a device
   that does not exist.
+* The host-span recorder: a CPU pipeline's two jobs give each span its
+  job's request and the parent of the documented nesting; every readback
+  site a CPU extraction reaches (the plain K4 compaction included) and
+  the matcher's copies record their span under their scope; ``enable``
+  switches the recorder at run time and adds no profiler range; under
+  ``trace(dir)`` the appended host spans lie on the profiler's clock.
 """
 
+import collections
 import json
 import os
+import statistics
 import subprocess
 import sys
 
@@ -213,3 +221,213 @@ def test_device_set_raises_for_absent_device(capsys):
     props.print()
     out = capsys.readouterr().out
     assert out.strip() and ("no CUDA device" in out) == (n == 0)
+
+
+def _image(seed=0):
+    rng = np.random.default_rng(seed)
+    return (np.kron(rng.random((12, 16)), np.ones((8, 8))) * 255).astype(
+        np.uint8)
+
+
+@pytest.fixture
+def recorder():
+    """The recorder on and empty; off and empty afterwards."""
+    was = tracing.HOSTTRACE
+    tracing.host_trace_snapshot(clear=True)
+    tracing.enable(True)
+    yield
+    tracing.enable(was)
+    tracing.host_trace_snapshot(clear=True)
+
+
+# each span's parent in an extraction (stage names without their octave)
+_PARENT = {"queue": "job", "upload": "job", "extract": "job",
+           "stage1": "extract", "filter": "extract", "stage2": "extract",
+           "assemble": "extract", "pyramid": "stage1", "detect": "stage1",
+           "orientation": "stage2", "descriptors": "stage2",
+           "download": "stage2", "readback.compact": "detect",
+           "readback.refine_status": "detect",
+           "readback.recompact": "filter", "readback.rows": "orientation",
+           "readback.download": "download"}
+
+
+def _kind(name):
+    return name.split(".o")[0] if name.startswith("stage") else name
+
+
+def test_pipeline_spans_carry_request_and_parent(recorder):
+    img = _image()
+    h, w = img.shape
+    cfg = pt.Config()
+    cfg.set_filter_max_extrema(10)       # the filter's recompaction too
+    with pt.PopSift(cfg, device="cpu") as ps:
+        jobs = [ps.enqueue(w, h, img) for _ in range(2)]
+        for j in jobs:
+            assert j.get().get_feature_count() > 0
+        spans = tracing.host_spans()
+    requests = [j.request for j in jobs]
+    assert len(set(requests)) == 2 and None not in requests
+    by_id = {s.id: s for s in spans}
+    assert len(by_id) == len(spans)
+    for r in requests:
+        mine = [s for s in spans if s.request == r]
+        roots = [s for s in mine if s.name == "job"]
+        assert len(roots) == 1 and roots[0].parent is None
+        names = collections.Counter(_kind(s.name) for s in mine)
+        assert set(names) == set(_PARENT) | {"job"}, names
+        for s in mine:
+            if s.name == "job":
+                continue
+            parent = by_id[s.parent]
+            assert parent.request == r
+            assert _kind(parent.name) == _PARENT[_kind(s.name)], s
+            assert parent.start <= s.start <= s.end <= parent.end, s
+        # the worker opened all but the two spans opened at enqueue
+        threads = {s.thread for s in mine if s.name not in ("job", "queue")}
+        assert len(threads) == 1
+        assert threads != {roots[0].thread}
+    assert {s.request for s in spans} == set(requests)
+
+
+def test_readback_sites_record_under_their_scope(recorder):
+    cfg = pt.Config()
+    cfg.set_filter_max_extrema(10)
+    feats = extract_features(_image(1), cfg, device="cpu", want_dev=True)
+    spans = tracing.host_spans()
+    by_id = {s.id: s for s in spans}
+    readbacks = [s for s in spans if s.name.startswith("readback.")]
+    assert {s.name for s in readbacks} == {
+        n for n in _PARENT if n.startswith("readback.")}
+    for s in readbacks:
+        assert by_id[s.parent].name == _PARENT[s.name], s
+        assert s.request is None              # outside a pipeline job
+    # MatchingMode downloads all but the descriptors: five per octave
+    # with features, none for an empty one
+    n_oct = sum(1 for s in spans if s.name == "download")
+    n_down = sum(s.name == "readback.download" for s in readbacks)
+    assert 0 < n_down <= 5 * n_oct and n_down % 5 == 0
+    # the plain K4 compaction is reached once per octave with candidates
+    assert sum(s.name == "readback.refine_status" for s in readbacks) \
+        == sum(s.name == "detect" for s in spans)
+
+    tracing.host_trace_snapshot(clear=True)
+    best = feats.match(feats)[0]
+    np.testing.assert_array_equal(best, np.arange(best.shape[0]))
+    spans = tracing.host_spans()
+    (match,) = [s for s in spans if s.name == "match"]
+    copies = [s for s in spans if s.name == "readback.match"]
+    assert len(copies) == 5
+    assert all(s.parent == match.id for s in copies)
+    snap = tracing.host_trace_snapshot()
+    assert snap["readback.match"][0] == 5 and snap["match"][0] == 1
+
+
+def test_enable_switches_the_recorder_without_profiler_ranges(recorder):
+    from torch.profiler import ProfilerActivity, profile
+    img = _image(2)
+    ranges = {}
+    for on in (False, True):
+        tracing.enable(on)
+        assert tracing.HOSTTRACE is on
+        tracing.host_trace_snapshot(clear=True)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            extract_features(img, pt.Config(), device="cpu")
+        ranges[on] = collections.Counter(
+            e.name for e in prof.events()
+            if e.name in tracing.SCOPES or e.name.startswith(
+                ("readback", "stage", "extract", "job")))
+        snap = tracing.host_trace_snapshot(clear=True)
+        if on:
+            assert snap["extract"][0] == 1
+            assert snap["pyramid"][0] == ranges[on]["pyramid"]
+        else:
+            assert snap == {} and tracing.host_spans() == []
+    assert ranges[True] == ranges[False]
+    assert set(ranges[True]) == set(tracing.SCOPES)
+
+
+def test_trace_appends_host_spans_on_the_profilers_clock(tmp_path):
+    was = tracing.HOSTTRACE
+    img = _image(3)
+    h, w = img.shape
+    with tracing.trace(str(tmp_path)):
+        assert tracing.HOSTTRACE
+        extract_features(img, pt.Config(), device="cpu")
+        with pt.PopSift(pt.Config(), device="cpu") as ps:
+            assert ps.enqueue(w, h, img).get().get_feature_count() > 0
+    assert tracing.HOSTTRACE is was
+    (path,) = tmp_path.iterdir()
+    events = json.loads(path.read_text())["traceEvents"]
+    hosts = [e for e in events if e.get("cat") == "host_span"]
+    assert all({"request", "id", "parent"} <= set(e["args"])
+               for e in hosts)
+    # job and queue cross threads: async pairs; the rest complete events
+    pairs = collections.Counter((e["name"], e["ph"]) for e in hosts
+                                if e["ph"] in "be")
+    assert pairs == {("job", "b"): 1, ("job", "e"): 1, ("queue", "b"): 1,
+                     ("queue", "e"): 1}
+    # the profiler's pyramid ranges and the host spans, paired in order on
+    # each thread (the caller's and the worker's)
+    def starts(cat):
+        by_tid = collections.defaultdict(list)
+        for e in events:
+            if e.get("cat") == cat and e.get("name") == "pyramid":
+                by_tid[e["tid"]].append(float(e["ts"]))
+        return {t: sorted(v) for t, v in by_tid.items()}
+    prof, host = starts("user_annotation"), starts("host_span")
+    assert set(prof) == set(host) and len(host) == 2
+    gaps = [abs(a - b) for t in host for a, b in zip(host[t], prof[t],
+                                                       strict=True)]
+    assert statistics.median(gaps) < 500.0, gaps   # us
+
+
+def test_to_host_records_one_wait_per_nonempty_copy(recorder):
+    a = tracing.to_host(torch.arange(3), "readback.x")
+    b = tracing.to_host(torch.empty(0), "readback.x")
+    np.testing.assert_array_equal(a, [0, 1, 2])
+    assert b.shape == (0,)
+    assert tracing.host_trace_snapshot()["readback.x"][0] == 1
+
+
+def test_recorder_under_contending_threads(recorder):
+    """More threads than cores open nested spans under their own requests
+    with a short switch interval: no span is lost, no id or request is
+    shared, and every parent is a span of the same thread and request."""
+    import threading
+    n_threads, n_spans = 4 * (os.cpu_count() or 1), 200
+    requests = [tracing.new_request() for _ in range(n_threads)]
+    assert len(set(requests)) == n_threads
+
+    def work(r):
+        tracing.set_request(r)
+        for _ in range(n_spans):
+            outer = tracing.begin("outer")
+            tracing.end(tracing.begin("inner"))
+            tracing.end(outer)
+        tracing.set_request(None)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(r,))
+                   for r in requests]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    spans = tracing.host_spans()
+    assert len(spans) == 2 * n_threads * n_spans
+    by_id = {s.id: s for s in spans}
+    assert len(by_id) == len(spans)
+    for s in spans:
+        if s.name == "inner":
+            parent = by_id[s.parent]
+            assert parent.name == "outer"
+            assert (parent.request, parent.thread) == (s.request, s.thread)
+        else:
+            assert s.parent is None
+    assert collections.Counter(s.request for s in spans) == {
+        r: 2 * n_spans for r in requests}
