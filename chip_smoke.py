@@ -44,7 +44,13 @@ JAX nor popsift_tpu.  In order it:
    capacity; a digest of K9's output, which equals that of K8 and the
    window form's kernel before K9 read the stack, as
    tools/torch_time_kernels.py --kernels K9 shows on both trees),
-   K1 at the halo classes only the non-default pyramids reach (4:
+   K5/K10, K6/K11 and K9/K12/K13 as the main path launches them, once
+   over a table of every octave that holds extrema (bit for bit against
+   their one-entry launches octave by octave and run to run, the stack
+   kernels against the field kernels, and within the single-octave
+   tolerances of the plain versions of each octave; these table launches
+   are the kernel table's rows of these kernels, the single-octave
+   launches kept inside them as ``one_octave``), K1 at the halo classes only the non-default pyramids reach (4:
    Fixed9's span 5; 32: VLFeat-relative-all's span 21), the same taps on
    both axes x255 at octave 0, bit for bit, with cuDNN's time beside
    them, and K3 and K4 in the OpenCV and VLFeat SiftModes on each mode's
@@ -811,9 +817,9 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     pms = cuda_ms(lambda: binwin.ori_peaks_plain(*args5), reps=10)
     work, union, _ = support_pixels(ex.xpos, ex.ypos, ex.lpos, ex.sigma, L,
                                     h, w)
-    table.add("ori_hist", f"K5 ori_peaks {ne} extrema", err, ms, pms,
-              8 * union + 16 * ne + 20 * ne,
-              OPS_ORI_PIXEL * work + OPS_ORI_PEAKS * ne)
+    table.add("ori_hist", f"K5 ori_peaks {ne} extrema of octave {ob}", err,
+              ms, pms, 8 * union + 16 * ne + 20 * ne,
+              OPS_ORI_PIXEL * work + OPS_ORI_PEAKS * ne, sub="one_octave")
     a_ms = cuda_ms(lambda: ops_ori.assign_orientations(*args5))
     h_ms = cuda_ms(lambda: binwin.peaks_from_hist(binwin.ori_hist(*args5)))
     print(f"  assign_orientations at octave {ob}: {a_ms:.6f} ms (events); "
@@ -823,7 +829,8 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     # K6 on the octave's (extremum, orientation) rows
     num_ori, oris = ops_ori.assign_orientations(field, ex.xpos, ex.ypos,
                                                 ex.lpos, ex.sigma)
-    feat, ang, _, _ = ext.descriptor_rows(plan, ob, num_ori, oris)
+    feat, ang, *_ = ext.descriptor_rows(plan, [ob], [ex.count], num_ori,
+                                       oris)
     half = plan.desc_win // 2
     args6 = (field, ex.xpos[feat].contiguous(), ex.ypos[feat].contiguous(),
              ex.lpos[feat].contiguous(), ex.sigma[feat].contiguous(),
@@ -839,8 +846,9 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
     nd = int(feat.shape[0])
     work, union, _ = support_pixels(*args6[1:5], L, h, w, ang=args6[5],
                                     half=half)
-    table.add("desc_loop", f"K6 desc_loop {nd} rows", max_abs(dk, dp), ms,
-              pms, 8 * union + 20 * nd + 512 * nd, OPS_DESC_PIXEL * work)
+    table.add("desc_loop", f"K6 desc_loop {nd} rows of octave {ob}",
+              max_abs(dk, dp), ms, pms, 8 * union + 20 * nd + 512 * nd,
+              OPS_DESC_PIXEL * work, sub="one_octave")
 
     # K6 against K11 at octave 0, at this octave (timed here) and at the
     # octave whose keypoints have the largest sigma, where the descriptor's
@@ -864,6 +872,7 @@ def check_kernels(torch, pt, scene: np.ndarray, table: Table,
 
     check_windows_and_grid(torch, plan, stack, stack0, ob, args6[1:6],
                            table)
+    check_table_launches(torch, pt, plan, img, table)
     check_blur_classes(torch, pt, scene, table, dev)
     for mode in ("opencv", "vlfeat"):
         check_mode_keypoints(torch, pt, scene, mode, table, dev)
@@ -1355,7 +1364,7 @@ def check_stack_kernels(torch, plan, o, stack, ex, table: Table,
     hp = binwin.ori_hist_stack_plain(*a10)
     require(torch.allclose(hk, hp, rtol=1e-5, atol=1e-6),
             f"K10 histograms differ by {max_abs(hk, hp):.3g}")
-    feat, ang, _, _ = ext.descriptor_rows(plan, o, num_ori, oris)
+    feat, ang, *_ = ext.descriptor_rows(plan, [o], [ex.count], num_ori, oris)
     half = plan.desc_win // 2
     rows = tuple(v[feat].contiguous() for v in a10[1:]) + (ang.contiguous(),)
     dk = binwin.desc_loop_stack(stack, *rows, half)
@@ -1382,17 +1391,20 @@ def check_stack_kernels(torch, plan, o, stack, ex, table: Table,
     work, _, nbr = support_pixels(*a10[1:], L, h, w)
     ms = kernel_ms(lambda: binwin.ori_peaks_stack(*a10))
     pms = cuda_ms(lambda: binwin.ori_peaks_stack_plain(*a10), reps=10)
-    table.add("ori_hist_stack", f"K10 ori_peaks_stack {ne} extrema",
-              max_abs(hk, hp), ms, pms, 4 * nbr + 16 * ne + 20 * ne,
-              (OPS_ORI_PIXEL + OPS_GRAD) * work + OPS_ORI_PEAKS * ne)
+    table.add("ori_hist_stack", f"K10 ori_peaks_stack {ne} extrema of "
+              f"octave {o}", max_abs(hk, hp), ms, pms,
+              4 * nbr + 16 * ne + 20 * ne,
+              (OPS_ORI_PIXEL + OPS_GRAD) * work + OPS_ORI_PEAKS * ne,
+              sub="one_octave")
     work, _, nbr = support_pixels(*rows[:4], L, h, w, ang=rows[4],
                                   half=half)
     ms = kernel_ms(lambda: binwin.desc_loop_stack(stack, *rows, half))
     pms = cuda_ms(lambda: binwin.desc_loop_stack_plain(stack, *rows, half),
                   reps=10)
-    table.add("desc_loop_stack", f"K11 desc_loop_stack {nd} rows",
-              max_abs(dk, dp), ms, pms, 4 * nbr + 20 * nd + 512 * nd,
-              (OPS_DESC_PIXEL + OPS_GRAD) * work)
+    table.add("desc_loop_stack", f"K11 desc_loop_stack {nd} rows of "
+              f"octave {o}", max_abs(dk, dp), ms, pms,
+              4 * nbr + 20 * nd + 512 * nd,
+              (OPS_DESC_PIXEL + OPS_GRAD) * work, sub="one_octave")
 
     def field_path():
         f = grad.grad_field(stack)
@@ -1680,23 +1692,25 @@ def staged_boxes(xs, ys, sg, an, win: int):
     return box, (box[1] - box[0] + 1) * (box[3] - box[2] + 1)
 
 
-def footprint_bytes(stack, rows, win: int) -> int:
+def footprint_bytes(stack, rows, win: int, say: bool = True) -> int:
     """The compulsory bytes of a descriptor kernel that reads the stack
     (K9, K12, K13) on ``rows``: the distinct stack pixels that the rows'
     footprint boxes (without the kernels' one-pixel slack) cover, the five
-    inputs and the outputs.  Prints the staged footprints' sizes and the
-    rows whose footprint exceeds the staging capacity."""
+    inputs and the outputs.  With ``say`` it prints the staged footprints'
+    sizes and the rows whose footprint exceeds the staging capacity."""
     from popsift_torch.kernels import desc_grid, windows
 
     xs, ys, lps, sg, an = rows
     L, h, w = stack.shape
     n = int(xs.shape[0])
-    _, pix = staged_boxes(xs, ys, sg, an, win)
-    over = int((pix > desc_grid.STAGE_FLOATS).sum())
-    print(f"  K9/K12/K13 footprints of {n} rows: {int(pix.min())}-"
-          f"{int(pix.max())} px staged (median {int(pix.median())}); "
-          f"{over} rows ({100.0 * over / max(n, 1):.2f}%) exceed the "
-          f"staging capacity of {desc_grid.STAGE_FLOATS} px", flush=True)
+    if say:
+        _, pix = staged_boxes(xs, ys, sg, an, win)
+        over = int((pix > desc_grid.STAGE_FLOATS).sum())
+        print(f"  K9/K12/K13 footprints of {n} rows: {int(pix.min())}-"
+              f"{int(pix.max())} px staged (median {int(pix.median())}); "
+              f"{over} rows ({100.0 * over / max(n, 1):.2f}%) exceed the "
+              f"staging capacity of {desc_grid.STAGE_FLOATS} px",
+              flush=True)
     x0, ya = windows.window_origins(xs, ys, win)
     tb = desc_grid.footprint_box(xs, ys, sg, an, win)
     union = box_union_pixels(
@@ -1761,11 +1775,222 @@ def check_stack_descriptors(torch, plan, stack, rows, nbytes: int,
         require(off <= allowed and float(row_err.max()) <= 1e-3 * scale,
                 f"{label} descriptors differ from the plain version")
         pms = cuda_ms(lambda: plain(*args), reps=10)
-        table.add(name, f"{label} {name} {n} rows, no staging (stage=0)",
-                  max_abs(k, p), kernel_ms(lambda: kern(*args, stage=0)),
-                  pms, nbytes + tbytes, nops, sub="no_staging")
-        table.add(name, f"{label} {name} {n} rows", max_abs(k, p),
-                  kernel_ms(lambda: kern(*args)), pms, nbytes + tbytes, nops)
+        table.add(name, f"{label} {name} {n} rows of one octave, no "
+                  f"staging (stage=0)", max_abs(k, p),
+                  kernel_ms(lambda: kern(*args, stage=0)), pms,
+                  nbytes + tbytes, nops, sub="one_octave_no_staging")
+        table.add(name, f"{label} {name} {n} rows of one octave",
+                  max_abs(k, p), kernel_ms(lambda: kern(*args)), pms,
+                  nbytes + tbytes, nops, sub="one_octave")
+
+
+def check_table_launches(torch, pt, plan, img, table: Table) -> None:
+    """K5/K10, K6/K11 and K9/K12/K13 as the main path launches them: once
+    an image, with a table of every octave that holds extrema, on stage
+    1's grid-filtered extrema of ``img`` (the [0, 1] input on the card),
+    laid end to end in ascending octave order, and the rows that
+    descriptor_rows makes of them.  Each table launch equals, bit for bit,
+    its one-entry launches octave by octave and itself run to run; the
+    stack kernels equal the field kernels; each is held to the plain
+    versions of its octaves (binwin.per_octave) at the tolerances of the
+    single-octave checks, timed, and its bound summed over the octaves.
+    These are the kernel table's rows of these kernels."""
+    from popsift_torch import extract as ext
+    from popsift_torch.constants import desc_tables_on
+    from popsift_torch.gauss import build_gauss_info
+    from popsift_torch.kernels import binwin, desc_grid, grad
+
+    stage1, _ = ext.image_keypoints(plan, build_gauss_info(pt.Config()), img,
+                                    stack_kernels=False, return_pyramid=True)
+    live = [(o, st, grad.grad_field(st) if f is None else f, e)
+            for o, (st, f, e) in enumerate(stage1) if e.count]
+    require(len(live) >= 2, f"extrema in {len(live)} octaves: no table")
+    octs = [o for o, _, _, _ in live]
+    counts = [e.count for _, _, _, e in live]
+    stacks = [st for _, st, _, _ in live]
+    fields = [f for _, _, f, _ in live]
+    kp = tuple(torch.cat([getattr(e, k) for _, _, _, e in live])
+               for k in ("xpos", "ypos", "lpos", "sigma"))
+    ne, k = sum(counts), len(live)
+    print(f"  table launches: octaves {octs}, extrema {counts}", flush=True)
+
+    def sliced(vecs, cnts):
+        s = 0
+        for c in cnts:
+            yield tuple(v[s:s + c] for v in vecs)
+            s += c
+
+    # K5 and K10: the table launch, its one-entry launches, the plain
+    # histograms and peaks of each octave
+    def ori_table(stack, srcs, hist=None):
+        fn = binwin.ori_peaks_stack_octaves if stack \
+            else binwin.ori_peaks_octaves
+        return fn(srcs, counts, *kp, hist=hist)
+
+    def ori_one(stack, srcs):
+        fn = binwin.ori_peaks_stack if stack else binwin.ori_peaks
+
+        def one(src, *v):
+            h = torch.empty((v[0].shape[0], 36), dtype=torch.float32,
+                            device=src.device)
+            n, a = fn(src, *v, hist=h)
+            return torch.cat((h, n[:, None].float(), a), 1)
+        return torch.cat(binwin.per_octave(one, srcs, counts, *kp))
+
+    ori = {}
+    for stack, name, label, srcs in ((False, "ori_hist", "K5", fields),
+                                     (True, "ori_hist_stack", "K10",
+                                      stacks)):
+        hk, hk2 = (torch.empty((ne, 36), dtype=torch.float32,
+                               device=img.device) for _ in range(2))
+        num, ang = ori_table(stack, srcs, hk)
+        got = torch.cat((hk, num[:, None].float(), ang), 1)
+        num2, ang2 = ori_table(stack, srcs, hk2)
+        require(torch.equal(got, torch.cat((hk2, num2[:, None].float(),
+                                            ang2), 1)),
+                f"{label}'s table launch is not deterministic")
+        require(torch.equal(got, ori_one(stack, srcs)),
+                f"{label}'s table launch differs from its one-entry "
+                f"launches")
+        plain_h = binwin.ori_hist_stack_plain if stack \
+            else binwin.ori_hist_plain
+        plain_p = binwin.ori_peaks_stack_plain if stack \
+            else binwin.ori_peaks_plain
+        hp = torch.cat(binwin.per_octave(plain_h, srcs, counts, *kp))
+        qs = binwin.per_octave(plain_p, srcs, counts, *kp)
+        qn = torch.cat([q[0] for q in qs])
+        qa = torch.cat([q[1] for q in qs])
+        same = num == qn
+        off = int((~same).sum())
+        a_err = max_abs(ang[same], qa[same])
+        print(f"  {label} table of {k} octaves, {ne} extrema: bit-equal to "
+              f"its one-entry launches and run to run; histograms within "
+              f"{max_abs(hk, hp):.3g} of the plain versions, whose peaks "
+              f"give another num_ori on {off} extrema (angles of the "
+              f"others within {a_err:.3g})", flush=True)
+        require(torch.allclose(hk, hp, rtol=1e-5, atol=1e-6),
+                f"{label} table histograms differ by {max_abs(hk, hp):.3g}")
+        require(off <= ne // 100 and a_err <= 1e-4,
+                f"{label} table orientations differ from the plain "
+                f"versions'")
+        ori[label] = got
+        work = union = nbr = 0
+        for (o, st, _, _), v in zip(live, sliced(kp, counts)):
+            w_, u_, n_ = support_pixels(*v, st.shape[0], st.shape[1],
+                                        st.shape[2])
+            work, union, nbr = work + w_, union + u_, nbr + n_
+        ms = kernel_ms(lambda: ori_table(stack, srcs))
+        pms = cuda_ms(lambda: binwin.per_octave(plain_p, srcs, counts, *kp),
+                      reps=10)
+        nbytes = (4 * nbr if stack else 8 * union) + 36 * ne
+        nops = (OPS_ORI_PIXEL + (OPS_GRAD if stack else 0)) * work \
+            + OPS_ORI_PEAKS * ne
+        table.add(name, f"{label} {name} table of {k} octaves, {ne} extrema",
+                  max_abs(hk, hp), ms, pms, nbytes, nops)
+    require(torch.equal(ori["K5"], ori["K10"]),
+            "K10's table launch differs from K5's on the main path's fields")
+
+    # the rows of every octave, as stage 2 makes them
+    num_ori, oris = binwin.ori_peaks_octaves(fields, counts, *kp)
+    feat, ang, _, _, rows = ext.descriptor_rows(plan, octs, counts, num_ori,
+                                                oris)
+    rv = tuple(v[feat].contiguous() for v in kp) + (ang.contiguous(),)
+    nd, half, win = int(feat.shape[0]), plan.desc_win // 2, plan.desc_win
+    print(f"  descriptor rows {rows} ({nd})", flush=True)
+
+    # K6 and K11
+    loop = {}
+    for stack, name, label, srcs in ((False, "desc_loop", "K6", fields),
+                                     (True, "desc_loop_stack", "K11",
+                                      stacks)):
+        fn = binwin.desc_loop_stack_octaves if stack \
+            else binwin.desc_loop_octaves
+        one = binwin.desc_loop_stack if stack else binwin.desc_loop
+        plain = binwin.desc_loop_stack_plain if stack \
+            else binwin.desc_loop_plain
+        d = fn(srcs, rows, *rv, half)
+        require(torch.equal(d, fn(srcs, rows, *rv, half)),
+                f"{label}'s table launch is not deterministic")
+        require(torch.equal(d, torch.cat(binwin.per_octave(
+            lambda src, *v: one(src, *v, half), srcs, rows, *rv))),
+            f"{label}'s table launch differs from its one-entry launches")
+
+        def plain_all():
+            return torch.cat(binwin.per_octave(
+                lambda src, *v: plain(src, *v, half), srcs, rows, *rv))
+        dp = plain_all()
+        print(f"  {label} table of {k} octaves, {nd} rows: bit-equal to its "
+              f"one-entry launches and run to run; within "
+              f"{max_abs(d, dp):.3g} of the plain versions", flush=True)
+        require(torch.allclose(d, dp, rtol=1e-5, atol=1e-6),
+                f"{label} table descriptors differ by {max_abs(d, dp):.3g}")
+        loop[label] = d
+        work = union = nbr = 0
+        for (o, st, _, _), v in zip(live, sliced(rv, rows)):
+            w_, u_, n_ = support_pixels(*v[:4], st.shape[0], st.shape[1],
+                                        st.shape[2], ang=v[4], half=half)
+            work, union, nbr = work + w_, union + u_, nbr + n_
+        ms = kernel_ms(lambda: fn(srcs, rows, *rv, half))
+        pms = cuda_ms(plain_all, reps=10)
+        table.add(name, f"{label} {name} table of {k} octaves, {nd} rows",
+                  max_abs(d, dp), ms, pms,
+                  (4 * nbr if stack else 8 * union) + 532 * nd,
+                  (OPS_DESC_PIXEL + (OPS_GRAD if stack else 0)) * work)
+    require(torch.equal(loop["K6"], loop["K11"]),
+            "K11's table launch differs from K6's on the main path's fields")
+
+    # K9, K12 and K13 on the stacks, with the allowances of
+    # check_stack_descriptors
+    gauss_t, tile_t = desc_tables_on(img.device)
+    nbytes = sum(footprint_bytes(st, v, win, say=False)
+                 for st, v in zip(stacks, sliced(rv, rows)))
+    good = int(desc_grid.grid_rounded_points(rv[0], rv[1], rv[3],
+                                             rv[4])[4].sum())
+    listed = 16 * int(desc_grid.iloop_sample_list(rv[3], rv[4])[1].sum())
+    for name, label, tables, nops, tbytes, allowed in (
+            ("desc_grid_stack", "K9", (gauss_t, tile_t),
+             nd * (1600 * OPS_GRID_SAMPLE + OPS_GRID_TILES),
+             4 * (1600 + 16), 0),
+            ("desc_grid_rounded_stack", "K12", (), good * OPS_ROUNDED_SAMPLE,
+             0, nd // 100),
+            ("desc_iloop_stack", "K13", (), listed * OPS_ILOOP_SAMPLE, 0,
+             nd // 100)):
+        fn = getattr(desc_grid, name + "_octaves")
+        one = getattr(desc_grid, name)
+        plain = getattr(desc_grid, name + "_plain")
+        args = (stacks, rows) + rv + (win,) + tables
+        d = fn(*args)
+        require(torch.equal(d, fn(*args)),
+                f"{label}'s table launch is not deterministic")
+        require(torch.equal(d, fn(*args, stage=0)),
+                f"{label}'s table launch: the rows read through L2 differ "
+                f"from the staged")
+        require(torch.equal(d, torch.cat(binwin.per_octave(
+            lambda st, *v: one(st, *v, win, *tables), stacks, rows, *rv))),
+            f"{label}'s table launch differs from its one-entry launches")
+
+        def plain_all():
+            return torch.cat(binwin.per_octave(
+                lambda st, *v: plain(st, *v, win, *tables), stacks, rows,
+                *rv))
+        dp = plain_all()
+        scale = float(dp.abs().max())
+        row_err = (d - dp).abs().amax(dim=1)
+        off = int((row_err > 1e-5 * scale).sum())
+        print(f"  {label} table of {k} octaves, {nd} rows: bit-equal to its "
+              f"one-entry launches, run to run and through L2; within "
+              f"{max_abs(d, dp):.3g} of the plain versions (largest entry "
+              f"{scale:.3g}); {off} rows beyond 1e-5 of it", flush=True)
+        require(off <= allowed and float(row_err.max()) <= 1e-3 * scale,
+                f"{label} table descriptors differ from the plain versions")
+        pms = cuda_ms(plain_all, reps=10)
+        table.add(name, f"{label} {name} table of {k} octaves, {nd} rows, no "
+                  f"staging (stage=0)", max_abs(d, dp),
+                  kernel_ms(lambda: fn(*args, stage=0)), pms,
+                  nbytes + tbytes, nops, sub="no_staging")
+        table.add(name, f"{label} {name} table of {k} octaves, {nd} rows",
+                  max_abs(d, dp), kernel_ms(lambda: fn(*args)), pms,
+                  nbytes + tbytes, nops)
 
 
 @contextlib.contextmanager
@@ -1773,28 +1998,30 @@ def footprint_tally(tally: list):
     """While active, each NoTile, Grid or ILoop descriptor call of the
     extraction appends (rows, rows whose staged footprint exceeds the staging
     capacity, largest footprint in px) to ``tally``."""
+    from popsift_torch import extract as ext_mod
     from popsift_torch.kernels import desc_grid
-    from popsift_torch.ops import descriptors as ops_desc
 
     def tallied(fn):
-        def call(stack, xs, ys, lpos, sigma, ang, win, *a, **k):
+        def call(stacks, counts, xs, ys, lpos, sigma, ang, win, *a, **k):
             _, pix = staged_boxes(xs, ys, sigma, ang, win)
             tally.append((int(pix.numel()),
                           int((pix > desc_grid.STAGE_FLOATS).sum()),
                           int(pix.max()) if pix.numel() else 0))
-            return fn(stack, xs, ys, lpos, sigma, ang, win, *a, **k)
+            return fn(stacks, counts, xs, ys, lpos, sigma, ang, win, *a,
+                      **k)
         return call
 
-    names = ("desc_grid_stack", "desc_grid_rounded_stack",
-             "desc_iloop_stack")
-    saved = {name: getattr(ops_desc, name) for name in names}
+    # the one descriptor launch of each extraction's stage-2 pass
+    names = ("desc_grid_stack_octaves", "desc_grid_rounded_stack_octaves",
+             "desc_iloop_stack_octaves")
+    saved = {name: getattr(ext_mod, name) for name in names}
     for name, fn in saved.items():
-        setattr(ops_desc, name, tallied(fn))
+        setattr(ext_mod, name, tallied(fn))
     try:
         yield
     finally:
         for name, fn in saved.items():
-            setattr(ops_desc, name, fn)
+            setattr(ext_mod, name, fn)
 
 
 def features_equal(a, b) -> bool:
@@ -2915,7 +3142,9 @@ def host_split(torch, pt, scenes, tmp: Path, smi: str) -> dict:
         spans[name] = total / n
         print(f"      {name:14s} {total / n:8.3f} ms/image ({count} spans), "
               f"{100 * total / n / wall_on:5.1f}% of the wall", flush=True)
-    groups = {g: sum(v for k, v in spans.items() if k.startswith(g + "."))
+    # stage 1 per octave (stage1.o<k>), stage 2 one pass (stage2)
+    groups = {g: sum(v for k, v in spans.items()
+                     if k == g or k.startswith(g + ".o"))
               for g in ("stage1", "stage2")}
     covered = spans.get("extract", 0.0)
     print(f"      stage 1 {groups['stage1']:.3f} ms, stage 2 "

@@ -21,6 +21,12 @@
 // with --fmad=false K10 and K11 are bit-equal to K5 and K6 run on K2's
 // field of the same stack.
 //
+// One launch takes the slots of several octaves: a table of up to 20
+// octaves (psk::OctaveTable, a kernel parameter) gives each run of slots
+// its source and shape, and a block reads its octave from it first.  The
+// per-slot arithmetic does not depend on the table, so a slot's results
+// are those of a launch over its octave alone, bit for bit.
+//
 // K5 and K10 also pick the histogram's peaks (ori_peaks), which the JAX
 // package does in XLA (popsift_tpu/ops/orientation.py:_peaks_from_hist):
 // they write num_ori and the angles, and the histogram only on request.
@@ -221,7 +227,7 @@ __device__ void ori_epilogue(float (*hist)[kOriBins], int lane, int slot,
 
 template <bool kStack>
 __global__ void __launch_bounds__(kOriThreads)
-ori_peaks(const float* __restrict__ src, int H, int W, int L,
+ori_peaks(const psk::OctaveTable octaves,
           const float* __restrict__ xs, const float* __restrict__ ys,
           const int* __restrict__ lpos, const float* __restrict__ sigmas,
           float* __restrict__ hist_out, int* __restrict__ num_out,
@@ -242,13 +248,15 @@ ori_peaks(const float* __restrict__ src, int H, int W, int L,
     const float y = ys[slot];
     const float sigma = sigmas[slot];
     const int lp = lpos[slot];
+    const psk::Octave oct = psk::octave_of(octaves, slot);
+    const int H = oct.H, W = oct.W;
 #pragma unroll
     for (int b = 0; b < kOriBins; ++b) s_bins[b][t] = 0.0f;
 
     const int rx = static_cast<int>(rintf(x));
     const int ry = static_cast<int>(rintf(y));
     const int rad = static_cast<int>(rintf(3.0f * (1.5f * sigma)));
-    const Gradient<kStack> grad(src, min(max(lp, 0), L - 1), H, W);
+    const Gradient<kStack> grad(oct.src, min(max(lp, 0), oct.L - 1), H, W);
 
     // xmin/xmax/ymin/ymax gates (s_orientation.cu:114-117)
     const int xmin = max(1, rx - rad), xmax = min(W - 2, rx + rad);
@@ -398,7 +406,7 @@ __device__ __forceinline__ void clip_offsets(float k, float p, float q,
 // which gives every lane the same bits, and lane b writes bin b.
 template <bool kStack>
 __global__ void __launch_bounds__(32 * kDescWarps)
-desc_loop(const float* __restrict__ src, int H, int W, int L,
+desc_loop(const psk::OctaveTable octaves,
           const float* __restrict__ xs, const float* __restrict__ ys,
           const int* __restrict__ lpos, const float* __restrict__ sigmas,
           const float* __restrict__ angs, int half,
@@ -423,7 +431,10 @@ desc_loop(const float* __restrict__ src, int H, int W, int L,
     const float sbp = fabsf(3.0f * sigmas[slot]);  // DESC_MAGNIFY * sigma
     const int rx = static_cast<int>(rintf(x));
     const int ry = static_cast<int>(rintf(y));
-    const Gradient<kStack> grad(src, min(max(lpos[slot], 0), L - 1), H, W);
+    const psk::Octave oct = psk::octave_of(octaves, slot);
+    const int H = oct.H, W = oct.W;
+    const Gradient<kStack> grad(oct.src, min(max(lpos[slot], 0), oct.L - 1),
+                                H, W);
 
     if (sbp > 0.0f) {
         const float cos_t = cosf(ang);
@@ -537,46 +548,55 @@ desc_loop(const float* __restrict__ src, int H, int W, int L,
 }
 
 template <bool kStack>
-int launch_ori_peaks(const float* src, int L, int H, int W, const float* x,
+int launch_ori_peaks(const long long* table, int n_octaves, const float* x,
                      const float* y, const int* lpos, const float* sigma,
                      int n, float* hist, int* num, float* ang, void* stream) {
+    psk::OctaveTable octaves;
+    if (!psk::octave_table(table, n_octaves, octaves))
+        return static_cast<int>(cudaErrorInvalidValue);
     ori_peaks<kStack><<<n, kOriThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        src, H, W, L, x, y, lpos, sigma, hist, num, ang);
+        octaves, x, y, lpos, sigma, hist, num, ang);
     return psk::status();
 }
 
 template <bool kStack>
-int launch_desc_loop(const float* src, int L, int H, int W, const float* x,
+int launch_desc_loop(const long long* table, int n_octaves, const float* x,
                      const float* y, const int* lpos, const float* sigma,
                      const float* angle, int n, int half, float* out,
                      void* stream) {
+    psk::OctaveTable octaves;
+    if (!psk::octave_table(table, n_octaves, octaves))
+        return static_cast<int>(cudaErrorInvalidValue);
     desc_loop<kStack><<<n, 32 * kDescWarps, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        src, H, W, L, x, y, lpos, sigma, angle, half, out);
+        octaves, x, y, lpos, sigma, angle, half, out);
     return psk::status();
 }
 
 }  // namespace
 
-// field: (2L, H, W); x, y, sigma: (n,) f32; lpos: (n,) i32; num: (n,)
+// octaves: n_octaves (field, first slot, L, H, W) int64 quintuples in
+// host memory, each field (2L, H, W), the slots of every octave end to
+// end (psk::OctaveTable); x, y, sigma: (n,) f32; lpos: (n,) i32; num: (n,)
 // i32 and ang: (n, 4) f32, the orientations; hist: (n, 36), or null.
-PSK_API int psk_ori_hist(const float* field, int L, int H, int W,
+PSK_API int psk_ori_hist(const long long* octaves, int n_octaves,
                          const float* x, const float* y, const int* lpos,
                          const float* sigma, int n, float* hist, int* num,
                          float* ang, void* stream) {
-    return launch_ori_peaks<false>(field, L, H, W, x, y, lpos, sigma, n, hist,
-                                   num, ang, stream);
+    return launch_ori_peaks<false>(octaves, n_octaves, x, y, lpos, sigma, n,
+                                   hist, num, ang, stream);
 }
 
-// stack: (L, H, W); the rest as psk_ori_hist.
-PSK_API int psk_ori_hist_stack(const float* stack, int L, int H, int W,
+// octaves: as psk_ori_hist, each source an (L, H, W) stack; the rest as
+// psk_ori_hist.
+PSK_API int psk_ori_hist_stack(const long long* octaves, int n_octaves,
                                const float* x, const float* y,
                                const int* lpos, const float* sigma, int n,
                                float* hist, int* num, float* ang,
                                void* stream) {
-    return launch_ori_peaks<true>(stack, L, H, W, x, y, lpos, sigma, n, hist,
-                                  num, ang, stream);
+    return launch_ori_peaks<true>(octaves, n_octaves, x, y, lpos, sigma, n,
+                                  hist, num, ang, stream);
 }
 
 // hist: (n, 36) given; num, ang as psk_ori_hist.
@@ -588,22 +608,22 @@ PSK_API int psk_ori_peaks_of_hist(const float* hist, int n, int* num,
     return psk::status();
 }
 
-// angle: (n,) f32; half: half the static descriptor window; out: (n, 128).
-PSK_API int psk_desc_loop(const float* field, int L, int H, int W,
+// octaves: as psk_ori_hist; angle: (n,) f32; half: half the static
+// descriptor window; out: (n, 128).
+PSK_API int psk_desc_loop(const long long* octaves, int n_octaves,
                           const float* x, const float* y, const int* lpos,
                           const float* sigma, const float* angle, int n,
                           int half, float* out, void* stream) {
-    return launch_desc_loop<false>(field, L, H, W, x, y, lpos, sigma, angle,
-                                   n, half, out, stream);
+    return launch_desc_loop<false>(octaves, n_octaves, x, y, lpos, sigma,
+                                   angle, n, half, out, stream);
 }
 
-// stack: (L, H, W); the rest as psk_desc_loop.
-PSK_API int psk_desc_loop_stack(const float* stack, int L, int H, int W,
+// octaves: as psk_ori_hist_stack; the rest as psk_desc_loop.
+PSK_API int psk_desc_loop_stack(const long long* octaves, int n_octaves,
                                 const float* x, const float* y,
                                 const int* lpos, const float* sigma,
                                 const float* angle, int n, int half,
                                 float* out, void* stream) {
-    return launch_desc_loop<true>(stack, L, H, W, x, y, lpos, sigma, angle,
-                                  n, half, out, stream);
+    return launch_desc_loop<true>(octaves, n_octaves, x, y, lpos, sigma,
+                                  angle, n, half, out, stream);
 }
-

@@ -37,6 +37,12 @@
 // samples reach, most of them shared with neighbouring rows in L2); in
 // practice instruction issue.
 //
+// One launch takes the rows of several octaves: a table of up to 20
+// octaves' stacks (psk::OctaveTable, a kernel parameter) gives each run of
+// rows its stack and shape, and a block reads its row's octave from it
+// before anything else.  The per-row arithmetic does not depend on the
+// table, so a row's descriptor is that of a launch over its octave alone.
+//
 // Common design: one block of 8 warps per row.  The block stages only the
 // row's footprint, the box of +-(ceil(2.5 bsz sbp + 2) + 1) px around the
 // keypoint in window-local terms (bsz = |cos| + |sin|), clamped to the
@@ -152,11 +158,12 @@ struct RowWindow {
 // K8's window of the row and the row's footprint box (the formula of
 // kernels/desc_grid.py:footprint_box, one pixel wider on each side).
 __device__ __forceinline__ RowWindow row_window(
-        const float* stack, int L, int H, int W, int lpos, float x, float y,
-        float sbp, float bsz, int win, int win_y) {
+        const psk::Octave& oct, int lpos, float x, float y, float sbp,
+        float bsz, int win, int win_y) {
     RowWindow r;
-    const int lp = min(max(lpos, 0), L - 1);
-    r.plane = stack + static_cast<size_t>(lp) * H * W;
+    const int H = oct.H, W = oct.W;
+    const int lp = min(max(lpos, 0), oct.L - 1);
+    r.plane = oct.src + static_cast<size_t>(lp) * H * W;
     r.H = H;
     r.W = W;
     r.x0 = static_cast<int>(rintf(x)) - win / 2;
@@ -305,7 +312,7 @@ __device__ void grid_samples(const RowWindow& r, const float* box,
 }
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-desc_grid_stack(const float* __restrict__ stack, int L, int H, int W,
+desc_grid_stack(const psk::OctaveTable octaves,
                 const int* __restrict__ lpos, const float* __restrict__ xs,
                 const float* __restrict__ ys,
                 const float* __restrict__ sigmas,
@@ -332,8 +339,9 @@ desc_grid_stack(const float* __restrict__ stack, int L, int H, int W,
         if (t < 128) dst[t] = 0.0f;
         return;
     }
-    const RowWindow r = row_window(stack, L, H, W, lpos[slot], x, y, sbp,
-                                   fabsf(c) + fabsf(s), win, win_y);
+    const RowWindow r = row_window(psk::octave_of(octaves, slot), lpos[slot],
+                                   x, y, sbp, fabsf(c) + fabsf(s), win,
+                                   win_y);
     const bool staged = r.bw * (r.by1 - r.by0 + 1) <= capacity;
     if (staged) stage_box(box, r);
     if (t < 16) s_tile[t] = tile[t];
@@ -444,7 +452,7 @@ __device__ void grid_rounded_tiles(const RowWindow& r, const float* box,
 }
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-desc_grid_rounded_stack(const float* __restrict__ stack, int L, int H, int W,
+desc_grid_rounded_stack(const psk::OctaveTable octaves,
                         const int* __restrict__ lpos,
                         const float* __restrict__ xs,
                         const float* __restrict__ ys,
@@ -464,8 +472,9 @@ desc_grid_rounded_stack(const float* __restrict__ stack, int L, int H, int W,
     const bool ok = sbp > 0.0f;
     const float c = cosf(a);
     const float s = sinf(a);
-    const RowWindow r = row_window(stack, L, H, W, lpos[slot], x, y, sbp,
-                                   fabsf(c) + fabsf(s), win, win_y);
+    const RowWindow r = row_window(psk::octave_of(octaves, slot), lpos[slot],
+                                   x, y, sbp, fabsf(c) + fabsf(s), win,
+                                   win_y);
     const bool staged = r.bw * (r.by1 - r.by0 + 1) <= capacity;
     if (staged && ok) stage_box(box, r);
     {
@@ -549,7 +558,7 @@ __device__ void iloop_tiles(const RowWindow& r, const float* box,
 }
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-desc_iloop_stack(const float* __restrict__ stack, int L, int H, int W,
+desc_iloop_stack(const psk::OctaveTable octaves,
                  const int* __restrict__ lpos, const float* __restrict__ xs,
                  const float* __restrict__ ys,
                  const float* __restrict__ sigmas,
@@ -572,8 +581,8 @@ desc_iloop_stack(const float* __restrict__ stack, int L, int H, int W,
     const float c = cosf(a);
     const float s = sinf(a);
     const float bsz = fabsf(c) + fabsf(s);
-    const RowWindow r = row_window(stack, L, H, W, lpos[slot], x, y, sbp,
-                                   bsz, win, win_y);
+    const RowWindow r = row_window(psk::octave_of(octaves, slot), lpos[slot],
+                                   x, y, sbp, bsz, win, win_y);
     const bool staged = r.bw * (r.by1 - r.by0 + 1) <= capacity;
     if (staged && ok) stage_box(box, r);
 
@@ -623,60 +632,65 @@ desc_iloop_stack(const float* __restrict__ stack, int L, int H, int W,
 
 }  // namespace
 
-// NoTile (K9), Grid (K12) and ILoop (K13) from the stack.  stack:
-// (L, H, W) f32; lpos: (n,) i32 (clamped to 0..L-1 here); x, y, sigma,
-// angle: (n,) f32; win: the descriptor window (K8's exact origins), win_y
-// its rows; capacity: floats of dynamic shared memory for a row's footprint
-// (0: every row reads the stack through L2); K9 also takes gauss: (40, 40)
-// and tile: (16,); out: (n, 128).
+// NoTile (K9), Grid (K12) and ILoop (K13) from the stack.  octaves:
+// n_octaves (stack, first slot, L, H, W) int64 quintuples in host memory,
+// each stack (L, H, W) f32, the rows of every octave end to end
+// (psk::OctaveTable); lpos: (n,) i32 (clamped to 0..L-1 here); x, y,
+// sigma, angle: (n,) f32; win: the descriptor window (K8's exact origins),
+// win_y its rows; capacity: floats of dynamic shared memory for a row's
+// footprint (0: every row reads the stack through L2); K9 also takes
+// gauss: (40, 40) and tile: (16,); out: (n, 128).
 template <typename Kernel, typename... Tables>
-static int launch_stack_rows(Kernel kernel, const float* stack, int L,
-                             int H, int W, const int* lpos, const float* x,
+static int launch_stack_rows(Kernel kernel, const long long* table,
+                             int n_octaves, const int* lpos, const float* x,
                              const float* y, const float* sigma,
                              const float* angle, int n, int win, int win_y,
                              int capacity, float* out, void* stream,
                              Tables... tables) {
+    psk::OctaveTable octaves;
+    if (!psk::octave_table(table, n_octaves, octaves))
+        return static_cast<int>(cudaErrorInvalidValue);
     const int smem = capacity * static_cast<int>(sizeof(float));
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        stack, L, H, W, lpos, x, y, sigma, angle, win, win_y, capacity,
-        tables..., out);
+        octaves, lpos, x, y, sigma, angle, win, win_y, capacity, tables...,
+        out);
     return psk::status();
 }
 
-PSK_API int psk_desc_grid_stack(const float* stack, int L, int H, int W,
+PSK_API int psk_desc_grid_stack(const long long* octaves, int n_octaves,
                                 const int* lpos, const float* x,
                                 const float* y, const float* sigma,
                                 const float* angle, int n, int win,
                                 int win_y, int capacity, const float* gauss,
                                 const float* tile, float* out,
                                 void* stream) {
-    return launch_stack_rows(desc_grid_stack, stack, L, H, W, lpos, x, y,
+    return launch_stack_rows(desc_grid_stack, octaves, n_octaves, lpos, x, y,
                              sigma, angle, n, win, win_y, capacity, out,
                              stream, gauss, tile);
 }
 
-PSK_API int psk_desc_grid_rounded_stack(const float* stack, int L, int H,
-                                        int W, const int* lpos,
+PSK_API int psk_desc_grid_rounded_stack(const long long* octaves,
+                                        int n_octaves, const int* lpos,
                                         const float* x, const float* y,
                                         const float* sigma,
                                         const float* angle, int n, int win,
                                         int win_y, int capacity, float* out,
                                         void* stream) {
-    return launch_stack_rows(desc_grid_rounded_stack, stack, L, H, W, lpos,
-                             x, y, sigma, angle, n, win, win_y, capacity,
-                             out, stream);
+    return launch_stack_rows(desc_grid_rounded_stack, octaves, n_octaves,
+                             lpos, x, y, sigma, angle, n, win, win_y,
+                             capacity, out, stream);
 }
 
-PSK_API int psk_desc_iloop_stack(const float* stack, int L, int H, int W,
+PSK_API int psk_desc_iloop_stack(const long long* octaves, int n_octaves,
                                  const int* lpos, const float* x,
                                  const float* y, const float* sigma,
                                  const float* angle, int n, int win,
                                  int win_y, int capacity, float* out,
                                  void* stream) {
-    return launch_stack_rows(desc_iloop_stack, stack, L, H, W, lpos, x, y,
-                             sigma, angle, n, win, win_y, capacity, out,
+    return launch_stack_rows(desc_iloop_stack, octaves, n_octaves, lpos, x,
+                             y, sigma, angle, n, win, win_y, capacity, out,
                              stream);
 }

@@ -5,21 +5,24 @@ The counterpart of ``popsift_tpu.extract`` + ``popsift_tpu.staged``:
 :func:`extract_octaves` runs the stages as the staged extractor does:
 the pyramid and keypoints of every octave (:func:`octave_keypoints_all`),
 the grid filter over all of them (:func:`filter_extrema`; the two are
-:func:`image_keypoints`), then orientation and descriptors octave by
-octave (:func:`octave_features`), which :func:`extract_features`
-assembles.  They read the candidate, extremum and orientation counts back
-to the host between stages (shapes are dynamic on the GPU, so there are
-no compile buckets).  Each phase runs in a :func:`~popsift_torch.tracing.scope`
-(pyramid, detect, filter, orientation, descriptors, download, assemble).
-With the host-span recorder on (``POPSIFT_TPU_HOSTTRACE=1`` or
-``tracing.enable()``) the extraction (``extract``), each octave's two
-stages (``stage1.o<k>``, ``stage2.o<k>``) and each scope are host spans
-on the profiler's clock, under the job's request when a pipeline worker
-runs it; every point where the host waits for the card is a
-``readback.<site>`` span inside them (``rows`` and ``download`` here,
-``compact`` and ``refine_status`` in the compaction and K4's wrapper,
-``recompact`` in the grid filter); the candidate, extremum and
-descriptor counts are series.
+:func:`image_keypoints`), then stage 2, orientation and descriptors, in
+one pass over the extrema of every octave (:func:`stage2_features`: one
+orientation launch, one descriptor launch and one download an image,
+each kernel taking a table of the octaves), which :func:`extract_features`
+assembles.  They read the candidate and extremum counts back to the host
+per octave in stage 1 and the descriptor rows once in stage 2 (shapes are
+dynamic on the GPU, so there are no compile buckets).  Each phase runs in
+a :func:`~popsift_torch.tracing.scope` (pyramid, detect, filter,
+orientation, descriptors, download, assemble).  With the host-span
+recorder on (``POPSIFT_TPU_HOSTTRACE=1`` or ``tracing.enable()``) the
+extraction (``extract``), each octave's stage 1 (``stage1.o<k>``), the
+stage-2 pass (``stage2``) and each scope are host spans on the
+profiler's clock, under the job's request when a pipeline worker runs it;
+every point where the host waits for the card is a ``readback.<site>``
+span inside them (``rows`` and ``download`` here, ``compact`` and
+``refine_status`` in the compaction and K4's wrapper, ``recompact`` in
+the grid filter); the candidate, extremum and descriptor counts and the
+octaves of the stage-2 pass (``stage2.octaves``) are series.
 """
 
 from __future__ import annotations
@@ -31,11 +34,16 @@ import torch
 
 from .config import (Config, DescMode, GaussMode, NormMode, ScalingMode,
                      SiftMode, check_supported)
-from .constants import ConstInfo, build_const_info
+from .constants import ORIENTATION_MAX_COUNT, ConstInfo, build_const_info
 from .features import (FeaturesDev, FeaturesHost, assemble_features,
                        assemble_features_dev)
 from .gauss import build_gauss_info
-from .kernels.binwin import stack_kernels_enabled
+from .kernels.binwin import (desc_loop_octaves, desc_loop_stack_octaves,
+                             ori_peaks_octaves, ori_peaks_stack_octaves,
+                             stack_kernels_enabled)
+from .kernels.desc_grid import (desc_grid_rounded_stack_octaves,
+                                desc_grid_stack_octaves,
+                                desc_iloop_stack_octaves)
 from .kernels.detect import detect
 from .kernels.grad import grad_field
 from .kernels.refine import refine_compact, refine_params
@@ -171,30 +179,35 @@ def octave_keypoints(plan: ExtractorPlan, o: int, dog: torch.Tensor):
                                  plan.ext_caps[o])
 
 
-def descriptor_rows(plan: ExtractorPlan, o: int, num_ori: torch.Tensor,
+def descriptor_rows(plan: ExtractorPlan, octs, counts, num_ori: torch.Tensor,
                     orientations: torch.Tensor):
-    """One row per (extremum, orientation) in feature order, clamped at
-    the octave's orientation capacity.  Returns (feature index, angle,
-    num_ori clamped to the rows produced, and the rows before the clamp)."""
-    dev = num_ori.device
-    n = num_ori.shape[0]
-    incl = torch.cumsum(num_ori.to(torch.int64), 0)
-    sp = tracing.begin("readback.rows") if tracing.HOSTTRACE and n else None
-    total = int(incl[-1]) if n else 0
-    if sp is not None:
-        tracing.end(sp)
-    rows = min(total, plan.ori_caps[o])
-    sp = tracing.begin("readback.rows") if tracing.HOSTTRACE and n else None
-    feat = torch.repeat_interleave(torch.arange(n, device=dev),
-                                   num_ori.to(torch.int64))[:rows]
-    if sp is not None:
-        tracing.end(sp)
-    first = incl - num_ori.to(torch.int64)
-    k = torch.arange(rows, device=dev) - first[feat]
-    ang = orientations[feat, k]
-    num_eff = torch.clamp(torch.minimum(num_ori.to(torch.int64),
-                                        rows - first), min=0)
-    return feat, ang, num_eff.to(torch.int32), total
+    """One row per (extremum, orientation) in feature order, for the
+    extrema of the octaves ``octs`` (``counts[i]`` of octave ``octs[i]``,
+    end to end), each octave's rows clamped at its own orientation
+    capacity.  The running row count is read back in one copy (the one
+    ``readback.rows``), which gives each octave's rows before the clamp;
+    the rows themselves are made on the device with no further sync.
+    Returns (feature index, angle, num_ori clamped to the rows produced
+    (int64), and per octave the rows before and after the clamp)."""
+    num = num_ori.to(torch.int64)
+    incl = torch.cumsum(num, 0)
+    ends = np.cumsum(counts)
+    run = np.concatenate(([0], tracing.to_host(incl, "readback.rows")))
+    before = np.diff(run[ends], prepend=0).tolist()
+    rows = [min(b, plan.ori_caps[o]) for o, b in zip(octs, before)]
+    s = 0
+    for c, b, r in zip(counts, before, rows):
+        if r < b:
+            # the clamp bites: the octave keeps its first r rows
+            seg = num[s:s + c]
+            first = incl[s:s + c] - seg - int(run[s])
+            seg.copy_(torch.clamp(torch.minimum(seg, r - first), min=0))
+        s += c
+    total = sum(rows)
+    feat = torch.repeat_interleave(num, output_size=total)
+    k = torch.arange(total, device=num.device) \
+        - (torch.cumsum(num, 0) - num)[feat]
+    return feat, orientations[feat, k], num, before, rows
 
 
 def _quantize(desc: torch.Tensor, mode: str, norm_multi: int):
@@ -231,68 +244,105 @@ def quantize_descs_dev(desc: torch.Tensor, mode: str,
 
 
 def dispatch_descriptors(plan: ExtractorPlan, consts: ConstInfo | None,
-                         stack, field, xpos, ypos, lpos, sigma, ang,
-                         stack_kernels: bool = False):
-    """Descriptor-mode dispatch (popsift_tpu/extract.py:185-237).  Loop
-    descriptors read the gradient field (K6), or the stack (K11) with
+                         stacks, fields, counts, xpos, ypos, lpos, sigma,
+                         ang, stack_kernels: bool = False):
+    """Descriptor-mode dispatch (popsift_tpu/extract.py:185-237), one
+    launch over the rows of every octave: ``counts[i]`` rows of the octave
+    whose blurred stack is ``stacks[i]`` and gradient field ``fields[i]``.
+    Loop descriptors read the field (K6), or the stack (K11) with
     ``stack_kernels``.  The sampling modes read the blurred stack through
     per-row windows, which their kernels read straight from the stack:
     NoTile and IGrid, which compute the same numbers, with K9 and
     ``consts``' two descriptor tables on the stack's device; Grid with K12
     and ILoop with K13."""
+    rows = (counts, xpos, ypos, lpos, sigma, ang)
     if plan.desc_mode == DescMode.LOOP:
-        return ops_desc.loop_descriptors(
-            field, xpos, ypos, lpos, sigma, ang, plan.desc_win,
-            stack=stack if stack_kernels else None)
+        if stack_kernels:
+            return desc_loop_stack_octaves(stacks, *rows, plan.desc_win // 2)
+        return desc_loop_octaves(fields, *rows, plan.desc_win // 2)
     if plan.desc_mode == DescMode.GRID:
-        return ops_desc.grid_rounded_descriptors_windowed(
-            stack, xpos, ypos, lpos, sigma, ang, plan.desc_win)
+        return desc_grid_rounded_stack_octaves(stacks, *rows, plan.desc_win)
     if plan.desc_mode == DescMode.ILOOP:
-        return ops_desc.iloop_descriptors_windowed(
-            stack, xpos, ypos, lpos, sigma, ang, plan.desc_win)
-    return ops_desc.grid_descriptors_windowed(
-        stack, xpos, ypos, lpos, sigma, ang, plan.desc_win,
-        consts.desc_gauss, consts.desc_tile)
+        return desc_iloop_stack_octaves(stacks, *rows, plan.desc_win)
+    return desc_grid_stack_octaves(stacks, *rows, plan.desc_win,
+                                   consts.desc_gauss, consts.desc_tile)
 
 
-def octave_features(plan: ExtractorPlan, o: int, stack, ext,
-                    desc_transfer: str, field=None,
+def stage2_features(plan: ExtractorPlan, octaves: list, desc_transfer: str,
                     consts: ConstInfo | None = None,
                     stack_kernels: bool = False,
-                    want_dev: bool = False) -> dict:
-    """Orientation and descriptors of octave ``o``'s extrema ``ext``; host
-    arrays, but with ``want_dev`` the descriptors (``desc``) stay a
-    float32 tensor on the device.  With ``stack_kernels``, orientation and
-    loop descriptors read ``stack`` (K10, K11); otherwise they read
-    ``field``, computed from ``stack`` (K2) unless it is given.  ``consts``
-    is needed by the NoTile and IGrid modes only.  ``ori_count`` is the
-    octave's descriptor rows before the orientation capacity's clamp."""
-    dev = ext.xpos.device
-    with scope("orientation", dev):
-        if not stack_kernels and field is None:
-            field = grad_field(stack)
-        num_ori, oris = ops_ori.assign_orientations(
-            field, ext.xpos, ext.ypos, ext.lpos, ext.sigma,
-            stack=stack if stack_kernels else None)
-        feat, ang, num_eff, total = descriptor_rows(plan, o, num_ori, oris)
-    with scope("descriptors", dev):
-        desc = dispatch_descriptors(plan, consts, stack, field,
-                                    ext.xpos[feat], ext.ypos[feat],
-                                    ext.lpos[feat], ext.sigma[feat], ang,
-                                    stack_kernels)
-        if plan.norm_mode == NormMode.ROOT_SIFT:
-            desc = ops_desc.normalize_rootsift(desc, plan.norm_multi)
-        else:
-            desc = ops_desc.normalize_l2(desc, plan.norm_multi)
-    with scope("download", dev):
-        x, y, sigma, num_eff, oris = (
-            tracing.to_host(t, "readback.download")
-            for t in (ext.xpos, ext.ypos, ext.sigma, num_eff, oris))
-        return dict(x=x, y=y, sigma=sigma, num_ori=num_eff,
-                    orientations=oris,
-                    desc=(quantize_descs_dev if want_dev else quantize_descs)(
-                        desc, desc_transfer, plan.norm_multi),
-                    overflow=ext.overflow, ori_count=total)
+                    want_dev: bool = False) -> list:
+    """Stage 2 of the octaves ``octaves``, each (o, stack, field, Extrema)
+    in ascending o, in one pass: the extrema of every octave end to end,
+    one orientation launch (K5, or K10 with ``stack_kernels``), one
+    :func:`descriptor_rows`, one descriptor launch, one normalisation and
+    quantisation, and one download of two arrays (the keypoints' numbers
+    packed, and the descriptors).  Returns per octave a dict of host
+    arrays (``x, y, sigma, num_ori, orientations, desc``, slices of the
+    download), but with ``want_dev`` the descriptors (``desc``) stay a
+    float32 tensor on the device; ``overflow`` and ``ori_count``, the
+    octave's descriptor rows before the orientation capacity's clamp.
+    Orientation and loop descriptors read each octave's ``field``, or
+    ``stack`` with ``stack_kernels``; a field left None is computed from
+    the stack (K2).  ``consts`` is needed by the NoTile and IGrid modes
+    only."""
+    dev = octaves[0][3].xpos.device
+    live = [(o, st, f, e) for o, st, f, e in octaves if e.count]
+    octs = [o for o, _, _, _ in live]
+    counts = [e.count for _, _, _, e in live]
+    if tracing.HOSTTRACE:
+        tracing.host_trace("stage2.octaves", None, n=len(live))
+    meta = np.zeros((0, 4 + ORIENTATION_MAX_COUNT), np.float32)
+    desc = (torch.zeros((0, 128), dtype=torch.float32, device=dev)
+            if want_dev else np.zeros((0, 128), np.float32))
+    before = rows = []
+    if live:
+        stacks = [st for _, st, _, _ in live]
+        fields = None
+        with scope("orientation", dev):
+            if not stack_kernels:
+                fields = [grad_field(st) if f is None else f
+                          for _, st, f, _ in live]
+            x, y, lpos, sigma = (
+                torch.cat([getattr(e, k) for _, _, _, e in live])
+                for k in ("xpos", "ypos", "lpos", "sigma"))
+            if stack_kernels:
+                num_ori, oris = ori_peaks_stack_octaves(stacks, counts, x, y,
+                                                        lpos, sigma)
+            else:
+                num_ori, oris = ori_peaks_octaves(fields, counts, x, y, lpos,
+                                                  sigma)
+            feat, ang, num_eff, before, rows = descriptor_rows(
+                plan, octs, counts, num_ori, oris)
+        with scope("descriptors", dev):
+            d = dispatch_descriptors(plan, consts, stacks, fields, rows,
+                                     x[feat], y[feat], lpos[feat],
+                                     sigma[feat], ang, stack_kernels)
+            if plan.norm_mode == NormMode.ROOT_SIFT:
+                d = ops_desc.normalize_rootsift(d, plan.norm_multi)
+            else:
+                d = ops_desc.normalize_l2(d, plan.norm_multi)
+        with scope("download", dev):
+            meta = tracing.to_host(torch.cat(
+                (x[:, None], y[:, None], sigma[:, None],
+                 num_eff[:, None].to(torch.float32), oris), dim=1),
+                "readback.download")
+            desc = (quantize_descs_dev if want_dev else quantize_descs)(
+                d, desc_transfer, plan.norm_multi)
+    # per octave its rows before and after the clamp
+    counted = dict(zip(octs, zip(before, rows)))
+    out = []
+    s = r = 0
+    for o, _, _, e in octaves:
+        total, n_rows = counted.get(o, (0, 0))
+        m = meta[s:s + e.count]
+        out.append(dict(x=m[:, 0], y=m[:, 1], sigma=m[:, 2],
+                        num_ori=m[:, 3].astype(np.int32),
+                        orientations=m[:, 4:], desc=desc[r:r + n_rows],
+                        overflow=e.overflow, ori_count=total))
+        s += e.count
+        r += n_rows
+    return out
 
 
 def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
@@ -302,11 +352,11 @@ def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
                             want_dev: bool = False) -> dict:
     """Everything after the pyramid for octave ``o`` without the grid
     filter: :func:`octave_keypoints` on ``dog``, then
-    :func:`octave_features`."""
+    :func:`stage2_features` of the octave alone."""
     _, ext = octave_keypoints(plan, o, dog)
-    return octave_features(plan, o, stack, ext, desc_transfer, field=field,
+    return stage2_features(plan, [(o, stack, field, ext)], desc_transfer,
                            consts=consts, stack_kernels=stack_kernels,
-                           want_dev=want_dev)
+                           want_dev=want_dev)[0]
 
 
 def octave_keypoints_all(plan: ExtractorPlan, gauss, img: torch.Tensor,
@@ -405,18 +455,15 @@ def extract_octaves(image, config: Config, plan: ExtractorPlan, device,
     stage1, dogs = image_keypoints(plan, build_gauss_info(config), img,
                                    stack_kernels, return_pyramid)
     stacks = [s for s, _, _ in stage1] if return_pyramid else None
-    octaves = []
-    for o in range(plan.octaves):
-        stack, field, ext = stage1[o]
-        stage1[o] = None          # free the octave once it is done
-        if ks is not None:
-            ext = _first(ext, ks[o])
-        sp = tracing.begin(f"stage2.o{o}") if tracing.HOSTTRACE else None
-        octaves.append(octave_features(
-            plan, o, stack, ext, config.desc_transfer, field=field,
-            consts=consts, stack_kernels=stack_kernels, want_dev=want_dev))
-        if sp is not None:
-            tracing.end(sp)
+    octs = [(o, stack, field, ext if ks is None else _first(ext, ks[o]))
+            for o, (stack, field, ext) in enumerate(stage1)]
+    del stage1
+    sp = tracing.begin("stage2") if tracing.HOSTTRACE else None
+    octaves = stage2_features(plan, octs, config.desc_transfer,
+                              consts=consts, stack_kernels=stack_kernels,
+                              want_dev=want_dev)
+    if sp is not None:
+        tracing.end(sp)
     if tracing.HOSTTRACE:
         tracing.host_trace("descriptors", None,
                            n=sum(int(od["desc"].shape[0]) for od in octaves))

@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from ..config import MAX_OCTAVES
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "popsift_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,22 +49,20 @@ _SIGNATURES = {
     "psk_detect": [_P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     "psk_refine": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "psk_refine_compact": [_P, _P, _I, _P, _I, _P, _P, _P],
-    "psk_ori_hist": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "psk_ori_hist": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "psk_ori_peaks_of_hist": [_P, _I, _P, _P, _P],
-    "psk_desc_loop": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "psk_desc_loop": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "psk_octave_chain": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
                          _I, _P],
     "psk_gather_windows": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
-    "psk_desc_grid_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _P, _P, _P, _P],
-    "psk_ori_hist_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                           _P],
-    "psk_desc_loop_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P,
-                            _P],
-    "psk_desc_grid_rounded_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
-                                    _I, _I, _I, _P, _P],
-    "psk_desc_iloop_stack": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _P, _P],
+    "psk_desc_grid_stack": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                            _P, _P, _P],
+    "psk_ori_hist_stack": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "psk_desc_loop_stack": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "psk_desc_grid_rounded_stack": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _P, _P],
+    "psk_desc_iloop_stack": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                             _P],
 }
 
 _lock = threading.Lock()
@@ -223,3 +223,25 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     return dev
+
+
+def octave_table(srcs, counts, planes_per_level: int = 1) -> tuple:
+    """The octave table of one launch of a per-slot kernel (K5, K6,
+    K9-K13) over octaves whose slots lie end to end: ``srcs[i]``, a stack
+    (one plane a level) or a gradient field (two), holds the next
+    ``counts[i]`` slots.  Returns
+    the ctypes array of five int64 per octave with slots (source pointer,
+    first slot, L, H, W) and their number, at most MAX_OCTAVES, which is
+    every octave a Config can ask for (csrc/common.cuh: OctaveTable)."""
+    entries = []
+    first = 0
+    for src, c in zip(srcs, counts):
+        if c:
+            P, H, W = src.shape
+            entries += (src.data_ptr(), first, P // planes_per_level, H, W)
+            first += c
+    k = len(entries) // 5
+    if k > MAX_OCTAVES:
+        raise ValueError(f"{k} octaves in one launch; the table holds "
+                         f"{MAX_OCTAVES}")
+    return (ctypes.c_longlong * len(entries))(*entries), k

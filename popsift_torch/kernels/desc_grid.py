@@ -24,7 +24,10 @@ and K13 (:func:`desc_grid_stack`, :func:`desc_grid_rounded_stack`,
 (L, H, W) stack, only over the row's footprint (:func:`footprint_box`);
 their plain versions are K8's plain gather followed by the window forms
 (:func:`desc_grid_plain`, :func:`desc_grid_rounded_plain`,
-:func:`desc_iloop_plain`).
+:func:`desc_iloop_plain`).  Each takes the rows of several octaves in one
+launch (the ``*_octaves`` forms, a table of the octaves' stacks as in
+:mod:`popsift_torch.kernels.binwin`); the single-octave forms are tables
+of one entry.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 from ..constants import DESC_MAGNIFY, M_4RPI, M_PI2
 from . import _lib
+from .binwin import cat_rows, per_octave
 from .windows import gather_windows_plain, rolled_window_dims, window_origins
 
 _CHUNK = 256
@@ -416,10 +420,14 @@ def desc_iloop_stack_plain(stack, x, y, lpos, sigma, ang,
     return desc_iloop_plain(wins, x, y, x0f, yaf, sigma, ang, w, h)
 
 
-def _check_stack(name: str, stack: torch.Tensor, win: int,
-                 stage: int) -> None:
-    if stack.dim() != 3 or stack.dtype != torch.float32:
-        raise ValueError(f"{name} takes an (L, H, W) float32 stack")
+def _check_stacks(name: str, stacks, counts, n: int, win: int,
+                  stage: int) -> None:
+    for stack in stacks:
+        if stack.dim() != 3 or stack.dtype != torch.float32:
+            raise ValueError(f"{name} takes (L, H, W) float32 stacks")
+    if len(stacks) != len(counts) or sum(counts) != n:
+        raise ValueError(f"{name}: {len(stacks)} stacks for counts "
+                         f"{list(counts)} of {n} rows")
     rolled_window_dims(win)
     if stage < 0:
         raise ValueError(f"{name}: stage must be >= 0 floats")
@@ -431,23 +439,62 @@ def _on(dev, v, dtype):
     return v
 
 
-def _stack_rows_call(name: str, stack, x, y, lpos, sigma, ang, win: int,
-                     stage: int, tables=()) -> torch.Tensor:
-    """Launch ``name`` on the rows of the (L, H, W) stack, with optional
-    float32 device tables after the staging capacity."""
-    dev = _lib.check_cuda(name, stack)
+def _stack_rows(name: str, plain, stacks, counts, x, y, lpos, sigma, ang,
+                win: int, stage: int, tables=()) -> torch.Tensor:
+    """Launch ``name`` once on the rows of several octaves' (L, H, W)
+    stacks, ``stacks[i]`` holding the next ``counts[i]`` rows, with
+    optional float32 device tables after the staging capacity; on the CPU
+    ``plain`` of each octave."""
+    n = int(x.shape[0])
+    _check_stacks(name, stacks, counts, n, win, stage)
+    if stacks[0].device.type == "cpu":
+        return cat_rows(per_octave(
+            lambda st, *v: plain(st, *v, win, *tables), stacks, counts, x, y,
+            lpos, sigma, ang), 128, x)
+    dev = _lib.check_cuda(name, *stacks)
     lpos = _on(dev, lpos, torch.int32)
     x, y, sigma, ang, *tables = (_on(dev, v, torch.float32)
                                  for v in (x, y, sigma, ang, *tables))
-    L, H, W = stack.shape
-    n = int(x.shape[0])
     out = torch.empty((n, 128), dtype=torch.float32, device=dev)
     if n:
-        _lib.call(name, dev, stack.data_ptr(), L, H, W, lpos.data_ptr(),
-                  x.data_ptr(), y.data_ptr(), sigma.data_ptr(),
-                  ang.data_ptr(), n, win, rolled_window_dims(win)[0], stage,
+        table, k = _lib.octave_table(stacks, counts)
+        _lib.call(name, dev, table, k, lpos.data_ptr(), x.data_ptr(),
+                  y.data_ptr(), sigma.data_ptr(), ang.data_ptr(), n, win,
+                  rolled_window_dims(win)[0], stage,
                   *(t.data_ptr() for t in tables), out.data_ptr())
     return out
+
+
+def desc_grid_stack_octaves(stacks, counts, x, y, lpos, sigma, ang,
+                            win: int, desc_gauss: torch.Tensor,
+                            desc_tile: torch.Tensor,
+                            stage: int = STAGE_FLOATS) -> torch.Tensor:
+    """:func:`desc_grid_stack` of several octaves in one launch of K9:
+    ``stacks[i]`` holds the next ``counts[i]`` rows.  Each row's
+    descriptor is that of :func:`desc_grid_stack` on its own octave, bit
+    for bit."""
+    return _stack_rows("desc_grid_stack", desc_grid_stack_plain, stacks,
+                       counts, x, y, lpos, sigma, ang, win, stage,
+                       (desc_gauss, desc_tile))
+
+
+def desc_grid_rounded_stack_octaves(stacks, counts, x, y, lpos, sigma, ang,
+                                    win: int, stage: int = STAGE_FLOATS
+                                    ) -> torch.Tensor:
+    """:func:`desc_grid_rounded_stack` of several octaves in one launch of
+    K12, as :func:`desc_grid_stack_octaves`."""
+    return _stack_rows("desc_grid_rounded_stack",
+                       desc_grid_rounded_stack_plain, stacks, counts, x, y,
+                       lpos, sigma, ang, win, stage)
+
+
+def desc_iloop_stack_octaves(stacks, counts, x, y, lpos, sigma, ang,
+                             win: int, stage: int = STAGE_FLOATS
+                             ) -> torch.Tensor:
+    """:func:`desc_iloop_stack` of several octaves in one launch of K13,
+    as :func:`desc_grid_stack_octaves`."""
+    return _stack_rows("desc_iloop_stack", desc_iloop_stack_plain, stacks,
+                       counts, x, y, lpos, sigma, ang, win, stage)
 
 
 def desc_grid_stack(stack: torch.Tensor, x, y, lpos, sigma, ang, win: int,
@@ -459,13 +506,10 @@ def desc_grid_stack(stack: torch.Tensor, x, y, lpos, sigma, ang, win: int,
     window ``win``) through :func:`desc_grid_plain` with the (40, 40)
     ``desc_gauss`` and (16,) ``desc_tile`` tables.  ``stage``: floats of
     shared memory for a row's footprint on the card (0: every row reads
-    the stack through L2)."""
-    _check_stack("desc_grid_stack", stack, win, stage)
-    if stack.device.type == "cpu":
-        return desc_grid_stack_plain(stack, x, y, lpos, sigma, ang, win,
-                                     desc_gauss, desc_tile)
-    return _stack_rows_call("desc_grid_stack", stack, x, y, lpos, sigma,
-                            ang, win, stage, (desc_gauss, desc_tile))
+    the stack through L2).  A table of one octave."""
+    return desc_grid_stack_octaves([stack], [int(x.shape[0])], x, y, lpos,
+                                   sigma, ang, win, desc_gauss, desc_tile,
+                                   stage)
 
 
 def desc_grid_rounded_stack(stack: torch.Tensor, x, y, lpos, sigma, ang,
@@ -476,21 +520,14 @@ def desc_grid_rounded_stack(stack: torch.Tensor, x, y, lpos, sigma, ang,
     ``ang``: the numbers of K8's exact-origin windows (descriptor window
     ``win``) through :func:`desc_grid_rounded_plain`.  ``stage``: floats
     of shared memory for a row's footprint on the card (0: every row reads
-    the stack through L2)."""
-    _check_stack("desc_grid_rounded_stack", stack, win, stage)
-    if stack.device.type == "cpu":
-        return desc_grid_rounded_stack_plain(stack, x, y, lpos, sigma, ang,
-                                             win)
-    return _stack_rows_call("desc_grid_rounded_stack", stack, x, y, lpos,
-                            sigma, ang, win, stage)
+    the stack through L2).  A table of one octave."""
+    return desc_grid_rounded_stack_octaves([stack], [int(x.shape[0])], x, y,
+                                           lpos, sigma, ang, win, stage)
 
 
 def desc_iloop_stack(stack: torch.Tensor, x, y, lpos, sigma, ang, win: int,
                      stage: int = STAGE_FLOATS) -> torch.Tensor:
     """(n, 128) unnormalised ILoop descriptors (K13); arguments as
     :func:`desc_grid_rounded_stack`."""
-    _check_stack("desc_iloop_stack", stack, win, stage)
-    if stack.device.type == "cpu":
-        return desc_iloop_stack_plain(stack, x, y, lpos, sigma, ang, win)
-    return _stack_rows_call("desc_iloop_stack", stack, x, y, lpos, sigma,
-                            ang, win, stage)
+    return desc_iloop_stack_octaves([stack], [int(x.shape[0])], x, y, lpos,
+                                    sigma, ang, win, stage)

@@ -34,10 +34,16 @@ its thread, else the job's root.  The nesting::
     extract > stage1.o<k> > pyramid, detect > readback.compact,
                                               readback.refine_status
             > filter > readback.recompact
-            > stage2.o<k> > orientation > readback.rows
-                          > descriptors
-                          > download > readback.download
+            > stage2 > orientation > readback.rows
+                     > descriptors
+                     > download > readback.download
             > assemble
+
+``stage2`` is one pass over every octave's extrema (one orientation
+launch, one ``readback.rows``, one descriptor launch, two
+``readback.download`` copies, one with MatchingMode's descriptors kept on
+the card); the series ``#stage2.octaves`` counts the octaves that have
+extrema in it.
     match > readback.match              (FeaturesDev.match, no request)
 
 A ``readback.<site>`` span is the host waiting for the card: each is one

@@ -231,14 +231,14 @@ def test_switch_is_read_once_per_image(textured_image, monkeypatch):
     monkeypatch.setattr(tpyr, "grad_field", _no_field)
     monkeypatch.setattr(text, "grad_field", _no_field)
     calls = []
-    real = binwin.desc_loop_stack
+    real = binwin.desc_loop_stack_octaves
 
-    def spy(stack, *args):
+    def spy(stacks, *args):
         calls.append(None)
-        return real(stack, *args)
-    monkeypatch.setattr(tdesc, "desc_loop_stack", spy)
-    monkeypatch.setattr(tori, "ori_peaks", _no_field)
-    monkeypatch.setattr(tdesc, "desc_loop", _no_field)
+        return real(stacks, *args)
+    monkeypatch.setattr(text, "desc_loop_stack_octaves", spy)
+    monkeypatch.setattr(text, "ori_peaks_octaves", _no_field)
+    monkeypatch.setattr(text, "desc_loop_octaves", _no_field)
     feats = text.extract_features(textured_image, popsift_torch.Config(),
                                   device="cpu")
     assert len(reads) == 1
@@ -289,13 +289,13 @@ def test_stack_path_takes_every_octave(textured_image, monkeypatch):
                           textured_image.shape[0])
     assert min(w for w, _ in plan.dims) < 384
     calls = []
-    real = binwin.ori_peaks_stack
+    real = binwin.ori_peaks_stack_octaves
 
-    def spy(stack, *args):
-        calls.append(tuple(stack.shape))
-        return real(stack, *args)
-    monkeypatch.setattr(tori, "ori_peaks_stack", spy)
-    monkeypatch.setattr(tori, "ori_peaks", _no_field)
+    def spy(stacks, *args):
+        calls.extend(tuple(st.shape) for st in stacks)
+        return real(stacks, *args)
+    monkeypatch.setattr(text, "ori_peaks_stack_octaves", spy)
+    monkeypatch.setattr(text, "ori_peaks_octaves", _no_field)
     text.extract_features(textured_image, popsift_torch.Config(),
                           device="cpu")
     assert calls and all(s[2] < 384 for s in calls)

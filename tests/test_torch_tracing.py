@@ -113,8 +113,9 @@ def test_pipeline_uninit_with_hosttrace_enabled():
     assert r.stderr.count("# host trace:") == 2
     names = {line.split()[1] for line in r.stderr.splitlines()
              if line.startswith("#   ")}
-    for name in ("job", "extract", "stage1.o0", "stage2.o0", "filter",
-                 "assemble", "#candidates", "#extrema", "#descriptors"):
+    for name in ("job", "extract", "stage1.o0", "stage2", "filter",
+                 "assemble", "#candidates", "#extrema", "#descriptors",
+                 "#stage2.octaves"):
         assert name in names, (name, r.stderr[-2000:])
 
 
@@ -301,11 +302,12 @@ def test_readback_sites_record_under_their_scope(recorder):
     for s in readbacks:
         assert by_id[s.parent].name == _PARENT[s.name], s
         assert s.request is None              # outside a pipeline job
-    # MatchingMode downloads all but the descriptors: five per octave
-    # with features, none for an empty one
+    # one stage-2 pass, whose download is one copy of the keypoints'
+    # numbers: MatchingMode keeps the descriptors on the device
     n_oct = sum(1 for s in spans if s.name == "download")
     n_down = sum(s.name == "readback.download" for s in readbacks)
-    assert 0 < n_down <= 5 * n_oct and n_down % 5 == 0
+    assert n_oct == 1 and n_down == 1
+    assert sum(s.name == "readback.rows" for s in readbacks) == 1
     # the plain K4 compaction is reached once per octave with candidates
     assert sum(s.name == "readback.refine_status" for s in readbacks) \
         == sum(s.name == "detect" for s in spans)
