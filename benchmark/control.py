@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The control of a cell's comparison: the plain reference one precision
-step below the configuration's float32, put in the program's place.
+"""The control of a cell's comparison: the configuration's plain
+reference one precision step below its float32, put in the program's
+place.
 
     python3 benchmark/control.py --workload <cell> --seeds 1,2,3 [--device cpu]
 
@@ -31,7 +32,6 @@ def control_numbers(cell_name: str, seed: int, device: str,
     import torch
 
     from benchmark.lib import check, judge, spec
-    from benchmark.reference import sift
 
     overrides = overrides or {}
     bench = spec.benchmark()
@@ -39,17 +39,18 @@ def control_numbers(cell_name: str, seed: int, device: str,
     config = overrides.get("config") or spec.config(bench, cell["config"])
     traffic = overrides.get("traffic") or spec.traffic(cell["traffic"])
     limits = overrides.get("limits") or spec.limits(cell_name)
+    ref = spec.reference_of(config)
+    settings = ref.settings_of(config["popsift_config"])
     seed_bits = seed & (2 ** 64 - 1)
     gen = spec.named_module("inputs", config["input"]["kind"]).Generator(
         config["input"], seed_bits)
     kind = "pairs" if traffic["driver"] == "pairs" else "extract"
     picks = sorted(random.Random(seed_bits).sample(
         range(int(traffic["warmup"]), requests), int(traffic["sample"])))
-    nums = check.numbers(kind, [(i, None) for i in picks], gen,
-                         sift.settings_of(config["popsift_config"]),
+    nums = check.numbers(kind, [(i, None) for i in picks], gen, settings,
                          torch.device(device),
                          ratio=float(traffic.get("ratio", 0.8)),
-                         control=True)
+                         control=True, ref=ref)
     correct, checks = judge.verdict(nums, limits)
     return checks, correct
 

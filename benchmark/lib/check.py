@@ -34,11 +34,14 @@ def program_arrays(kind: str, output):
     return (judge.device_features(fa), judge.device_features(fb), m)
 
 
-def reference(image, settings: dict, device, control: bool = False):
+def reference(image, settings: dict, device, control: bool = False,
+              ref=sift):
+    """The features of ``ref`` (a module of ``benchmark/reference/``) on
+    one image; with ``control`` the control's."""
     dtype = torch.bfloat16 if control else torch.float32
     with tf32(control), torch.no_grad():
         return judge.reference_features(
-            sift.extract(image, settings, device, pyramid_dtype=dtype))
+            ref.extract(image, settings, device, pyramid_dtype=dtype))
 
 
 def _merge(into: dict, numbers: dict) -> None:
@@ -47,22 +50,23 @@ def _merge(into: dict, numbers: dict) -> None:
 
 
 def numbers(kind: str, samples: list, gen, settings: dict, device,
-            ratio: float = 0.8, control: bool = False) -> dict:
+            ratio: float = 0.8, control: bool = False, ref=sift) -> dict:
     """The largest of each number over ``samples``, (index, arrays) of
     :func:`program_arrays`, or with ``control`` only the indices, whose
-    outputs the control then makes."""
+    outputs the control then makes; ``ref`` is the configuration's
+    reference module."""
     out: dict = {}
     for index, prog in samples:
         request = gen.request(index)
         if kind == "extract":
-            ref = reference(request, settings, device)
-            got = reference(request, settings, device, True) if control \
-                else prog
-            _merge(out, judge.compare_features(got, ref))
+            want = reference(request, settings, device, ref=ref)
+            got = reference(request, settings, device, True, ref) \
+                if control else prog
+            _merge(out, judge.compare_features(got, want))
             continue
-        refs = [reference(im, settings, device) for im in request]
+        refs = [reference(im, settings, device, ref=ref) for im in request]
         if control:
-            fa, fb = (reference(im, settings, device, True)
+            fa, fb = (reference(im, settings, device, True, ref)
                       for im in request)
             m = None
             if fa["descriptors"].shape[0] and fb["descriptors"].shape[0]:
@@ -70,8 +74,8 @@ def numbers(kind: str, samples: list, gen, settings: dict, device,
                                     ratio, device, torch.float32, tf32=True)
         else:
             fa, fb, m = prog
-        for got, ref in zip((fa, fb), refs):
-            nums = judge.compare_features(got, ref)
+        for got, want in zip((fa, fb), refs):
+            nums = judge.compare_features(got, want)
             nums.pop("angle_gap", None)
             _merge(out, nums)
         if m is not None:

@@ -2,10 +2,12 @@
 and the files it names by name under ``benchmark/``.
 
 A cell names a configuration (``configs/<config>.json``) and a traffic
-mix (``traffic/<traffic>.json``); a metric is read by
-``metrics/<metric>.py``; the numbers that decide ``correct`` have their
-limits in ``limits/<cell>.json``.  Adding a configuration, a mix, a
-metric or a cell takes new files and entries, never an edit.
+mix (``traffic/<traffic>.json``); a configuration may name its plain
+reference (``reference/<reference>.py``) and its image mode; a metric is
+read by ``metrics/<metric>.py``; the numbers that decide ``correct`` have
+their limits in ``limits/<cell>.json``.  Adding a configuration, a
+reference, a mix, a metric or a cell takes new files and entries, never
+an edit.
 """
 
 from __future__ import annotations
@@ -76,3 +78,41 @@ def named_module(package: str, name: str):
     if not NAME.match(name) or "." in name:
         raise SystemExit(f"bad {package} name {name!r}")
     return importlib.import_module(f"benchmark.{package}.{name}")
+
+
+REFERENCE_EXPORTS = ("settings_of", "make_plan", "gauss_tables", "extract")
+IMAGE_MODES = ("byte", "float")
+
+
+def reference_of(config: dict):
+    """The plain reference that judges the configuration:
+    ``benchmark/reference/<config["reference"]>.py``, ``sift`` where the
+    key is left out.  The module's contract is in
+    ``benchmark/reference/__init__.py``."""
+    name = config.get("reference", "sift")
+    if not isinstance(name, str) or not NAME.match(name) or "." in name:
+        raise SystemExit(f"configuration key 'reference': bad name {name!r}")
+    full = f"benchmark.reference.{name}"
+    try:
+        mod = importlib.import_module(full)
+    except ModuleNotFoundError as e:
+        if e.name != full:
+            raise
+        raise SystemExit(f"configuration key 'reference': no module "
+                         f"benchmark/reference/{name}.py") from None
+    missing = [f for f in REFERENCE_EXPORTS
+               if not callable(getattr(mod, f, None))]
+    if missing:
+        raise SystemExit(f"configuration key 'reference': {name!r} lacks "
+                         f"{missing}")
+    return mod
+
+
+def image_mode_of(config: dict) -> str:
+    """How the configuration hands images to PopSift: ``byte`` (uint8,
+    the default where the key is left out) or ``float``."""
+    mode = config.get("image_mode", "byte")
+    if mode not in IMAGE_MODES:
+        raise SystemExit(f"configuration key 'image_mode': {mode!r} is not "
+                         f"one of {list(IMAGE_MODES)}")
+    return mode

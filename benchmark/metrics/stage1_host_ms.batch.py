@@ -1,5 +1,6 @@
 """The program's ``stage1.o<k>`` host spans (pyramid, detection and
-refinement of each octave) summed, per image extracted."""
+refinement of each octave) summed, per image extracted; nothing where
+the program records no such span."""
 
 import re
 
@@ -7,6 +8,8 @@ import re
 def read(run):
     if not run.spans or "extract" not in run.spans:
         return None
-    total = sum(v[1] for k, v in run.spans.items()
-                if re.fullmatch(r"stage1\.o\d+", k))
-    return total / run.spans["extract"][0]
+    stage1 = [v[1] for k, v in run.spans.items()
+              if re.fullmatch(r"stage1\.o\d+", k)]
+    if not stage1:
+        return None
+    return sum(stage1) / run.spans["extract"][0]

@@ -6,12 +6,14 @@
 
 from the root of a checkout.  The cell (``BENCHMARK.json``) names a
 configuration (``benchmark/configs/<config>.json``: the Config settings,
-the ProcessingMode and workers, and the input source) and a traffic mix
+the ProcessingMode, image mode and workers, the input source and the
+plain reference that judges it) and a traffic mix
 (``benchmark/traffic/<traffic>.json``: the driver that sends it and its
 parameters).  Set-up imports the program, makes the inputs from the seed
 and warms the cell's shapes; the window then sends the traffic for
 ``--seconds``.  Once it closes, a seeded sample of the window's outputs
-is held to the plain reference (``benchmark/reference/``) under the
+is held to the configuration's plain reference
+(``benchmark/reference/<reference>.py``, ``sift`` by default) under the
 cell's limits (``benchmark/limits/<cell>.json``).  The last line of
 standard output is one JSON object: ``correct``, ``attempted``,
 ``failed``, ``metrics`` (the cell's end-to-end metrics, or with
@@ -74,12 +76,11 @@ def make_config(popsift_torch, settings: dict):
     return cfg
 
 
-def plan_info(settings: dict, w: int, h: int) -> dict:
+def plan_info(ref, settings: dict, w: int, h: int) -> dict:
     """The input size, octave shapes, levels and blur spans, worked out
-    by the reference (nothing of the program)."""
-    from benchmark.reference import sift
-    plan = sift.make_plan(settings, w, h)
-    inc, _ = sift.gauss_tables(settings)
+    by the configuration's reference ``ref`` (nothing of the program)."""
+    plan = ref.make_plan(settings, w, h)
+    inc, _ = ref.gauss_tables(settings)
     return dict(input_w=w, input_h=h, dims=plan.dims, levels=plan.levels,
                 spans=[s for _, s in inc])
 
@@ -116,7 +117,6 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
     import torch
 
     from benchmark.lib import check, judge, records, spec, trace as tr
-    from benchmark.reference import sift
 
     overrides = overrides or {}
     bench = spec.benchmark()
@@ -124,6 +124,9 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
     config = overrides.get("config") or spec.config(bench, cell["config"])
     traffic = overrides.get("traffic") or spec.traffic(cell["traffic"])
     limits = overrides.get("limits") or spec.limits(cell_name)
+    ref = spec.reference_of(config)
+    image_mode = spec.image_mode_of(config)
+    settings = ref.settings_of(config["popsift_config"])
     seed_bits = seed & (2 ** 64 - 1)
 
     sys.path.insert(0, str(ROOT))
@@ -133,14 +136,14 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
 
     dev = torch.device(device)
     cfg = make_config(popsift_torch, config["popsift_config"])
-    settings = sift.settings_of(config["popsift_config"])
     gen = spec.named_module("inputs", config["input"]["kind"]).Generator(
         config["input"], seed_bits)
     driver = spec.named_module("drivers", traffic["driver"])
     kind = "pairs" if traffic["driver"] == "pairs" else "extract"
     ps = popsift_torch.PopSift(
         cfg, mode=popsift_torch.ProcessingMode(config["mode"]),
-        device=device, workers=int(config.get("workers", 1)))
+        imode=popsift_torch.ImageMode(image_mode), device=device,
+        workers=int(config.get("workers", 1)))
     counter = iter(range(1 << 62))
     ctx = types.SimpleNamespace(ps=ps, gen=gen, traffic=traffic,
                                 next_index=lambda: next(counter),
@@ -156,7 +159,8 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
         tracing.host_trace_snapshot(clear=True)
 
     run = types.SimpleNamespace(cell=cell_name, traffic=traffic,
-                                plan=plan_info(settings, gen.w, gen.h),
+                                plan=plan_info(ref, settings, gen.w,
+                                               gen.h),
                                 spans=None, trace=None, launches=None)
     run.setup_s = process_age()
     sample = records.Reservoir(int(traffic["sample"]), seed_bits)
@@ -187,7 +191,7 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
     t_check = records.clock()
     numbers = check.numbers(kind, sorted(samples, key=lambda s: s[0]), gen,
                             settings, dev,
-                            ratio=float(traffic.get("ratio", 0.8)))
+                            ratio=float(traffic.get("ratio", 0.8)), ref=ref)
     check_s = records.clock() - t_check
     correct, checks = judge.verdict(numbers, limits)
     attempted = len(run.window.requests)
@@ -232,7 +236,10 @@ def main(argv=None) -> int:
     from benchmark.lib import spec
     bench = spec.benchmark()
     cell = spec.cell(bench, args.workload)
-    set_environment(spec.config(bench, cell["config"]), bool(args.trace))
+    config = spec.config(bench, cell["config"])
+    set_environment(config, bool(args.trace))
+    spec.image_mode_of(config)
+    spec.reference_of(config).settings_of(config["popsift_config"])
 
     import torch
     if not torch.cuda.is_available() \

@@ -40,10 +40,14 @@ def test_span_readers():
     run = types.SimpleNamespace(spans=spans, span_s=0.25)
     assert spec.reader("handoff_ms.batch")(run) == pytest.approx(5.0)
     assert spec.reader("stage1_host_ms.batch")(run) == pytest.approx(8.0)
-    assert spec.reader("stage2_host_ms.batch")(run) == pytest.approx(8.0)
     assert spec.reader("extract_host_ms.pairs")(run) == pytest.approx(20.0)
     none = types.SimpleNamespace(spans=None)
     assert spec.reader("handoff_ms.batch")(none) is None
+    # a program that records no stage1.o<k> span: nothing, not 0
+    no_stage1 = {k: v for k, v in spans.items()
+                 if not k.startswith("stage1.")}
+    assert spec.reader("stage1_host_ms.batch")(
+        types.SimpleNamespace(spans=no_stage1, span_s=0.25)) is None
 
 
 def test_trace_readers():
