@@ -1,0 +1,8 @@
+"""The batch cells' ``dispatch_ms.batch``, read in the photograph cell (the
+benchmark's tests keep that metric's declaration to the batch cells)."""
+
+from benchmark.lib import spec
+
+
+def read(run):
+    return spec.reader("dispatch_ms.batch")(run)

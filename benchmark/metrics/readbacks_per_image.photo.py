@@ -1,0 +1,9 @@
+"""The batch cells' ``readbacks_per_image.batch``, read in the photograph
+cell (the benchmark's tests keep that metric's declaration to the batch
+cells)."""
+
+from benchmark.lib import spec
+
+
+def read(run):
+    return spec.reader("readbacks_per_image.batch")(run)

@@ -21,8 +21,12 @@ profiler's clock, under the job's request when a pipeline worker runs it;
 every point where the host waits for the card is a ``readback.<site>``
 span inside them (``rows`` and ``download`` here, ``compact`` and
 ``refine_status`` in the compaction and K4's wrapper, ``recompact`` in
-the grid filter); the candidate, extremum and descriptor counts and the
-octaves of the stage-2 pass (``stage2.octaves``) are series.
+the grid filter); the candidate, extremum and descriptor counts, the
+candidates and extrema dropped at capacity (``stage1.overflow``), the
+candidates the compaction's per-block budget dropped (``stage1.budget``),
+the extrema before and after the grid filter (``filter.total``,
+``filter.kept``) and the octaves of the stage-2 pass (``stage2.octaves``)
+are series.
 """
 
 from __future__ import annotations
@@ -91,7 +95,14 @@ class ExtractorPlan:
 
 
 def make_plan(config: Config, width: int, height: int) -> ExtractorPlan:
-    """Per-octave dims and capacities (popsift_tpu/extract.py:70-128)."""
+    """Per-octave dims and capacities.  Dims as popsift_tpu/extract.py:
+    70-128 gives them.  Capacities are the reference's, not the JAX
+    package's fixed buffers: an octave keeps up to ``max_extrema``
+    extrema (s_extrema.cu:549-557), or ``ext_capacity`` where it is set;
+    the candidates' capacity is the compaction budget's own bound
+    (PER_BLOCK of each BLOCK voxels of the mask), so it never drops a
+    candidate.  No buffer is sized by a capacity: the compaction and K4
+    size theirs by the counts they read back."""
     levels = max(2, config.levels)
     w, h = config.scaled_dims(width, height)
     octaves = config.num_octaves_for(width, height)
@@ -102,14 +113,10 @@ def make_plan(config: Config, width: int, height: int) -> ExtractorPlan:
 
     cand_caps, ext_caps, ori_caps = [], [], []
     for (w, h) in dims:
-        voxels = w * h * levels
-        if config.ext_capacity > 0:
-            ext_cap = config.ext_capacity
-        else:
-            ext_cap = min(config.max_extrema,
-                          max(512, _round_up(voxels // 256, 128)), 16384)
-        cand_cap = min(max(config.max_extrema, 2 * ext_cap),
-                       max(1024, _round_up(voxels // 64, 128)), 65536)
+        blocks = -(-(w * h * levels) // ops_ext.BLOCK)
+        cand_cap = max(1024, _round_up(blocks * ops_ext.PER_BLOCK, 128))
+        ext_cap = (config.ext_capacity if config.ext_capacity > 0
+                   else config.max_extrema)
         if config.ori_capacity > 0:
             ori_cap = config.ori_capacity
         else:
@@ -366,10 +373,14 @@ def octave_keypoints_all(plan: ExtractorPlan, gauss, img: torch.Tensor,
     pyramid, DoG and field, then detection and refinement.  ``img`` is
     the [0, 1] input on the device.  Returns per octave (stack, field,
     Extrema); each DoG is dropped once its keypoints are found, unless
-    ``dogs`` is a list, which then receives them."""
+    ``dogs`` is a list, which then receives them.  The series
+    ``stage1.overflow`` counts the candidates and extrema the octaves'
+    capacities dropped, ``stage1.budget`` the candidates the compaction's
+    per-block budget dropped (the JAX package's budget, which PopSift
+    does not have)."""
     out = []
     src = img
-    n_cands = n_ext = 0
+    n_cands = n_ext = n_over = n_budget = 0
     for o in range(plan.octaves):
         sp = tracing.begin(f"stage1.o{o}") if tracing.HOSTTRACE else None
         with scope("pyramid", img.device):
@@ -384,6 +395,8 @@ def octave_keypoints_all(plan: ExtractorPlan, gauss, img: torch.Tensor,
             tracing.end(sp)
         n_cands += cands.count
         n_ext += ext.count
+        n_over += cands.capped + ext.overflow
+        n_budget += cands.overflow - cands.capped
         out.append((stack, field, ext))
         if dogs is not None:
             dogs.append(dog)
@@ -391,19 +404,27 @@ def octave_keypoints_all(plan: ExtractorPlan, gauss, img: torch.Tensor,
     if tracing.HOSTTRACE:
         tracing.host_trace("candidates", None, n=n_cands)
         tracing.host_trace("extrema", None, n=n_ext)
+        tracing.host_trace("stage1.overflow", None, n=n_over)
+        tracing.host_trace("stage1.budget", None, n=n_budget)
     return out
 
 
 def filter_extrema(plan: ExtractorPlan, exts: list) -> list:
     """The grid filter over every octave's extrema when
     ``filter_max_extrema > 0`` (popsift_tpu staged.py:240-245), else
-    ``exts`` as they are."""
+    ``exts`` as they are.  The series ``filter.total`` and
+    ``filter.kept`` count the extrema before and after it."""
     if plan.filter_max_extrema <= 0:
         return exts
     keeps = ops_fg.grid_filter_keep_masks(
         exts, plan.filter_max_extrema, plan.filter_grid_size,
         plan.grid_filter_mode)
-    return [ops_fg.recompact(e, k) for e, k in zip(exts, keeps)]
+    kept = [ops_fg.recompact(e, k) for e, k in zip(exts, keeps)]
+    if tracing.HOSTTRACE:
+        tracing.host_trace("filter.total", None,
+                           n=sum(e.count for e in exts))
+        tracing.host_trace("filter.kept", None, n=sum(e.count for e in kept))
+    return kept
 
 
 def image_keypoints(plan: ExtractorPlan, gauss, img: torch.Tensor,

@@ -54,7 +54,8 @@ class Candidates(NamedTuple):
     zyx: torch.Tensor    # (count, 3) i32 rows (mask layer, y, x); the
     #                      mask layer is the DoG layer - 1
     count: int
-    overflow: int
+    overflow: int        # the budget's drops and the capacity's
+    capped: int = 0      # the capacity's alone
 
     @property
     def x(self) -> torch.Tensor:
@@ -83,7 +84,8 @@ def compact_mask(mask: torch.Tensor, cap: int) -> Candidates:
     """Set positions of the mask in raster (z, y, x) order: the first
     PER_BLOCK of each BLOCK-voxel run of the flattened mask, then clamped
     at ``cap`` (compact_mask of the JAX package).  ``overflow`` counts
-    every set position not returned, the budget's and the cap's."""
+    every set position not returned, the budget's and the cap's;
+    ``capped`` the cap's alone."""
     sp = tracing.begin("readback.compact") if tracing.HOSTTRACE else None
     nz = torch.nonzero(mask)                 # (total, 3), raster order
     if sp is not None:
@@ -111,7 +113,8 @@ def compact_mask(mask: torch.Tensor, cap: int) -> Candidates:
     _tally(total - kept)
     count = min(kept, cap)
     return Candidates(zyx=nz[:count].to(torch.int32).contiguous(),
-                      count=count, overflow=total - count)
+                      count=count, overflow=total - count,
+                      capped=kept - count)
 
 
 def compact_extrema(xn, yn, lpos, sigma, cell, ok, cap: int) -> Extrema:

@@ -179,12 +179,15 @@ def _first_bucket(count: int, cap: int) -> int:
 
 
 def key_from_counts(plan: ExtractorPlan, counts, ori_counts) -> tuple:
-    """The key the JAX extractor settles on after one image
-    (``_last_key5``, staged.py:1512-1594) from that image's per-octave
+    """A key in the form the JAX extractor settles on after one image
+    (``_last_key5``, staged.py:1512-1594), from that image's per-octave
     extrema ``counts`` and descriptor rows ``ori_counts``, with every
     candidate the plan holds refined (cks = the plan's candidate
-    capacities).  Every count fits its bucket, so the image extracts under
-    it as under the plan."""
+    capacities).  The plan's capacities are the reference's, not the JAX
+    package's buffers (:func:`make_plan`), so the key's ``cks`` and its
+    clamps are not the JAX key's: an octave of more than 65,536 candidates
+    or 16,384 extrema keeps them here.  Every count fits its bucket, so
+    the image extracts under the key as under the plan."""
     o_range = range(plan.octaves)
     ks = tuple(_first_bucket(c, plan.ext_caps[o])
                for o, c in zip(o_range, counts))

@@ -43,7 +43,11 @@ its thread, else the job's root.  The nesting::
 launch, one ``readback.rows``, one descriptor launch, two
 ``readback.download`` copies, one with MatchingMode's descriptors kept on
 the card); the series ``#stage2.octaves`` counts the octaves that have
-extrema in it.
+extrema in it.  Per image, ``#stage1.overflow`` counts the candidates and
+extrema that the octaves' capacities dropped, ``#stage1.budget`` the
+candidates that the compaction's per-block budget dropped, and with the
+grid filter on ``#filter.total`` and ``#filter.kept`` the extrema before
+and after it.
     match > readback.match              (FeaturesDev.match, no request)
 
 A ``readback.<site>`` span is the host waiting for the card: each is one

@@ -207,19 +207,29 @@ def test_const_info_matches(levels, sigma, up):
 @pytest.mark.parametrize("levels,up", [(3, 1.0), (3, 0.0), (2, 1.0),
                                        (5, 0.0)])
 def test_make_plan_matches(w, h, levels, up):
+    """Every field as the JAX package plans it but the capacities, which
+    are the reference's: each octave keeps up to max_extrema extrema
+    (1.25x that in descriptor rows), and never fewer candidates than the
+    JAX package's fixed buffers hold."""
     j, t = _configs(levels, 1.6, up)
     jp = jext.make_plan(j, w, h)
     tp = text.make_plan(t, w, h)
+    caps = ("cand_caps", "ext_caps", "ori_caps")
     for f in dataclasses.fields(jp):
-        assert _plain(getattr(tp, f.name)) == _plain(getattr(jp, f.name)), \
-            f.name
+        if f.name not in caps:
+            assert _plain(getattr(tp, f.name)) == \
+                _plain(getattr(jp, f.name)), f.name
+    assert tp.ext_caps == (t.max_extrema,) * tp.octaves
+    assert tp.ori_caps == (125056,) * tp.octaves
+    assert all(c >= jc for c, jc in zip(tp.cand_caps, jp.cand_caps))
 
 
 def test_default_plan_at_1080p():
     p = text.make_plan(tcfg.Config(), 1920, 1080)
     assert p.octaves == 9
     assert p.dims[0] == (3840, 2160) and p.dims[-1] == (15, 9)
-    assert (p.cand_caps[0], p.ext_caps[0]) == (65536, 16384)
+    # the budget's bound, 16 of each 1024 voxels, and max_extrema
+    assert (p.cand_caps[0], p.ext_caps[0]) == (388864, 100000)
     assert (p.ori_win, p.desc_win) == (48, 112)
     g = tgauss.build_gauss_info(tcfg.Config())
     assert [int(s) for s in g.inc.span] == [6, 6, 8, 9, 11, 14]

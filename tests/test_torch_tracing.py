@@ -41,6 +41,7 @@ import popsift_torch as pt  # noqa: E402
 from popsift_torch import device as tdevice  # noqa: E402
 from popsift_torch import tracing  # noqa: E402
 from popsift_torch.extract import extract_features  # noqa: E402
+from popsift_torch.ops import extrema as ops_ext  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -433,3 +434,26 @@ def test_recorder_under_contending_threads(recorder):
             assert s.parent is None
     assert collections.Counter(s.request for s in spans) == {
         r: 2 * n_spans for r in requests}
+
+
+@pytest.mark.parametrize("budget", [-1, 10])
+def test_capacity_and_filter_series_per_image(recorder, budget):
+    """Each extraction records ``#stage1.overflow`` (the capacities'
+    drops, none here), ``#stage1.budget`` (the per-block budget's drops,
+    as the compaction tallies them) and, with the grid filter on,
+    ``#filter.total`` (the extrema of every octave) and ``#filter.kept``
+    (the features left)."""
+    cfg = pt.Config()
+    cfg.set_filter_max_extrema(budget)
+    ops_ext.reset_budget_dropped()
+    feats = [extract_features(_image(s), cfg, device="cpu") for s in (3, 4)]
+    snap = tracing.host_trace_snapshot()
+    assert snap["#stage1.overflow"] == (2, 0.0)
+    assert snap["#stage1.budget"] == (2, float(ops_ext.budget_dropped()))
+    if budget < 0:
+        assert "#filter.total" not in snap and "#filter.kept" not in snap
+        return
+    assert snap["#filter.total"] == snap["#extrema"]
+    kept = sum(f.get_feature_count() for f in feats)
+    assert snap["#filter.kept"] == (2, float(kept))
+    assert kept < snap["#filter.total"][1] / 1.1
