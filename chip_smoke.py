@@ -195,7 +195,14 @@ JAX nor popsift_tpu.  In order it:
    street.pgm on the card against the CPU's at the parity tool's default
    tolerances, and a parity pack of one synthetic scene in the reference
    layout;
-14. prints the kernel table as one JSON line (each row's launches are
+14. stages through ``PopSift.enqueue`` a 6000x4000 float32 window
+   (AliceVision's configuration) and a 1080p byte frame, the caller
+   zeroing its array at once: the job's device image and features bit
+   for bit those of the upload the ring replaced, the photograph in more
+   than one band of the page-locked ring and the frame in one; prints
+   ``#stage_in.bands``, the ``stage_in`` and ``upload`` spans, and the
+   staging's time against the replaced host copy and pageable upload;
+15. prints the kernel table as one JSON line (each row's launches are
    those of its home path, the first that launches it; K8's, on no path,
    are its counts summed, each required to be 0; each row also holds its
    launches on every path, matching mode, the CLI, the multi-device step,
@@ -3833,6 +3840,93 @@ def run_oxford(torch, pt, smi: str) -> dict:
     return stats
 
 
+def run_stage_in(torch, pt, scenes, smi: str) -> dict:
+    """Phase 14: ``PopSift.enqueue`` stages each image onto the card band
+    by band through its page-locked ring.  A 6000x4000 float32 window (a
+    row stride, AliceVision's configuration) and a 1080p byte frame go
+    through ``enqueue`` with the recorder on, the caller zeroing its
+    array at once: the job's device image bit-equal to the upload it
+    replaced (``pipeline.upload_image`` of the array), its features
+    bit-equal to ``extract_features`` of that upload, the photograph in
+    more than one band and the frame in one.  Prints the bands, the
+    ``stage_in`` and ``upload`` spans, and the staging's time against the
+    replaced host copy and pageable upload (medians of 5, printed only)."""
+    from benchmark.inputs.photo_float import make_canvas
+    from benchmark.run import make_config
+    from popsift_torch import pipeline, tracing
+    from popsift_torch.extract import extract_features
+    print("phase 14: the stage-in ring", flush=True)
+    dev = torch.device("cuda")
+    av = json.loads((HERE / "benchmark" / "configs"
+                     / "alicevision-popsift-24mp.json").read_text())
+    canvas = make_canvas([24, 1], 4000 + 40, 6000 + 40)
+    cases = (("6000x4000 float32 window", make_config(pt, av["popsift_config"]),
+              pt.ImageMode.FLOAT, canvas[17:4017, 23:6023]),
+             ("1080p byte frame", pt.Config(), pt.ImageMode.BYTE,
+              scenes[1].copy()))
+    stats = {}
+    was = tracing.HOSTTRACE
+    for label, cfg, imode, image in cases:
+        h, w = image.shape
+        plain = pipeline.upload_image(image, dev)
+        want = extract_features(plain, cfg, dev)
+        tracing.host_trace_snapshot(clear=True)
+        tracing.enable(True)
+        try:
+            with pt.PopSift(cfg, imode=imode, device=dev) as ps:
+                job = ps.enqueue(w, h, image)
+                image[...] = 0            # the caller reuses its array
+                got = job.get()
+                img = job.get_img()
+                snap = tracing.host_trace_snapshot(clear=True)
+                require(torch.equal(img, plain),
+                        f"{label}: the staged image differs from the "
+                        f"upload")
+                require(features_equal(got, want),
+                        f"{label}: features differ from those of the "
+                        f"upload")
+                image[...] = plain.cpu().numpy()
+                buf = np.empty_like(image)
+
+                def replaced():
+                    np.copyto(buf, image)
+                    pipeline.upload_image(buf, dev)
+                    torch.cuda.synchronize(dev)
+
+                def staged():
+                    _, ready, _ = ps._stage_in.stage(image, image.dtype)
+                    ready.synchronize()
+                times = {}
+                for name, fn in (("replaced", replaced),
+                                 ("staged", staged)) * 2:
+                    fn()
+                    t = []
+                    for _ in range(5):
+                        t0 = time.perf_counter()
+                        fn()
+                        t.append((time.perf_counter() - t0) * 1e3)
+                    times.setdefault(name, []).append(float(np.median(t)))
+        finally:
+            tracing.enable(was)
+        bands = snap["#stage_in.bands"][1]
+        require(bands > 1 if imode == pt.ImageMode.FLOAT else bands == 1,
+                f"{label}: {bands} bands")
+        stats[label] = dict(bands=bands, features=got.get_feature_count(),
+                            stage_in_ms=snap["stage_in"][1],
+                            upload_ms=snap["upload"][1],
+                            replaced_ms=times["replaced"],
+                            staged_ms=times["staged"])
+        print(f"  {label}: device image and {got.get_feature_count()} "
+              f"features bit-equal to the upload's; {bands:.0f} band(s), "
+              f"stage_in {snap['stage_in'][1]:.3f} ms, upload span "
+              f"{snap['upload'][1]:.3f} ms; staging "
+              f"{', '.join(f'{t:.3f}' for t in times['staged'])} ms against "
+              f"host copy + pageable upload "
+              f"{', '.join(f'{t:.3f}' for t in times['replaced'])} ms "
+              f"(medians of 5, in turns; {smi})", flush=True)
+    return stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3987,12 +4081,14 @@ def main() -> int:
         table.rows[name]["launches_by_path"]["oxford"] = \
             oxford_stats["counts"][name]
 
+    stage_in_stats = run_stage_in(torch, pt, scenes, smi)
+
     require(not any(m == "jax" or m.startswith(("jax.", "popsift_tpu"))
                     for m in sys.modules), "JAX was imported")
     left = child_pids()
     require(not left, f"processes started by this script are still "
             f"running: {left}")
-    print("phase 14: the kernel table (no child process left)", flush=True)
+    print("phase 15: the kernel table (no child process left)", flush=True)
     print(json.dumps({f"{p}_path": st for p, st in stats.items()}),
           flush=True)
     print(json.dumps({"matching": match_stats}), flush=True)
@@ -4001,6 +4097,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel_stats}), flush=True)
     print(json.dumps({"codec": codec_stats}), flush=True)
     print(json.dumps({"oxford": oxford_stats}), flush=True)
+    print(json.dumps({"stage_in": stage_in_stats}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": [table.rows[k] for k in _lib.KERNELS]}),
           flush=True)

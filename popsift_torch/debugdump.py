@@ -46,8 +46,12 @@ def dump_all(config: Config, job, basename: str, base_dir: str = ".",
              device="cuda") -> None:
     """Dump pyramid/DoG images and descriptor text files for one job,
     extracting its image again on ``device`` (the pipeline's) with every
-    octave's whole stack and DoG."""
-    feats, stacks, dogs = extract_features(job._image_data, config, device,
+    octave's whole stack and DoG: its host copy, or where it has none
+    (a job staged onto the card) its device image."""
+    image = job._image_data
+    if image is None:
+        image = job.get_img()
+    feats, stacks, dogs = extract_features(image, config, device,
                                            return_pyramid=True)
     oct_dir, octd_dir, dog_dir, dogt_dir, dogd_dir, desc_dir, fpt_dir = (
         os.path.join(base_dir, d) for d in DIRS)

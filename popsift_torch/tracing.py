@@ -24,13 +24,18 @@ popsift.cpp:441-452, sift_pyramid.cu:288-319).  Here:
   (debug_macros.h:84-117).
 
 Spans.  ``PopSift.enqueue`` numbers each job from a process-wide counter
-(:func:`new_request`); its root span ``job`` runs from the enqueue to the
-job's end, and its ``queue`` span until a worker takes it.  The worker
-makes the number its thread's request (:func:`set_request`), so every
-span it opens carries it; a span's parent is the innermost span open on
-its thread, else the job's root.  The nesting::
+(:func:`new_request`); its root span ``job`` runs from the start of the
+enqueue to the job's end, on a CUDA device its ``stage_in`` span over
+the caller's banded copy of the image onto the card (the series
+``#stage_in.bands`` counts the bands: the copy and the card's DMA overlap
+when it is above 1), and its ``queue`` span until a worker takes it.
+The worker makes the number its thread's request (:func:`set_request`),
+so every span it opens carries it; a span's parent is the innermost span
+open on its thread, else the job's root.  ``upload`` is the worker's
+wait for the staged image on a CUDA device, the image's upload on the
+CPU.  The nesting::
 
-    job > queue, upload, extract
+    job > stage_in, queue, upload, extract
     extract > stage1.o<k> > pyramid, detect > readback.compact,
                                               readback.refine_status
             > filter > readback.recompact
@@ -96,7 +101,7 @@ class Span(NamedTuple):
     profiler's clock; ``request`` the job's number (None outside a job);
     ``id`` unique in the process, ``parent`` the enclosing span's id;
     ``thread`` the native id of the thread that opened it; ``detached``
-    when another thread may close it (``job``, ``queue``)."""
+    when it is on no thread's stack (``job``, ``queue``, ``stage_in``)."""
 
     name: str
     start: int

@@ -15,9 +15,9 @@ alicevision-popsift-24mp.json``) on the CPU.
   ``#stage1.budget`` counts the candidates that the compaction's
   per-block budget dropped, as many as the reference's budget drops.
 * A job holds its own copy of the caller's image, one copy whatever the
-  image's layout, so the caller may reuse its buffer at once; where the
-  worker's upload copies it, as a CUDA worker's does, a finished job's
-  copy is the next job's buffer of that shape.
+  image's layout, so the caller may reuse its buffer at once (on a CUDA
+  card ``enqueue`` stages the image instead:
+  ``tests/test_torch_pipeline_stagein.py``).
 """
 
 import json
@@ -188,34 +188,3 @@ def test_a_job_holds_its_own_copy_of_the_image(layout):
     assert held.dtype == (np.uint8 if layout == "uint8" else np.float32)
     assert not np.shares_memory(held, image)
     np.testing.assert_array_equal(held, want)
-
-
-def test_a_finished_jobs_copy_is_the_next_jobs_buffer(monkeypatch):
-    from popsift_torch import pipeline
-    # an upload that copies the job's array, as a CUDA worker's does
-    monkeypatch.setattr(pipeline, "upload_image",
-                        lambda image, device: torch.from_numpy(image.copy()))
-    canvas = make_canvas([23, 3], 40, 56)
-    first = np.ascontiguousarray(canvas[:32, :48])
-    second = canvas[6:38, 5:53]
-    other = np.ascontiguousarray(canvas[:24, :40])
-    cfg = make_config(pt, CONFIG)
-    with pt.PopSift(cfg, imode=pt.PopSift.FloatImages, device="cpu") as ps:
-        ja = ps.enqueue(48, 32, first)
-        buf = ja._image_data
-        assert ja.get() is not None and ja._image_data is None
-        jb = ps.enqueue(48, 32, second)
-        assert jb._image_data is buf
-        want = np.array(second)
-        second[...] = 0       # the caller reuses its buffer at once
-        got = jb.get()
-        np.testing.assert_array_equal(buf, want)
-        jc = ps.enqueue(40, 24, other)
-        assert jc._image_data is not buf and jc._image_data.shape == (24, 40)
-        assert jc.get() is not None
-    with pt.PopSift(cfg, imode=pt.PopSift.FloatImages, device="cpu") as ps:
-        fresh = ps.enqueue(48, 32, want).get()
-    np.testing.assert_array_equal(got.get_descriptors(),
-                                  fresh.get_descriptors())
-    for k in ("xpos", "ypos", "sigma"):
-        np.testing.assert_array_equal(got._soa[k], fresh._soa[k])
