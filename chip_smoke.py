@@ -2970,7 +2970,6 @@ def check_log_tree(pt, tmp: Path) -> dict:
     """(e) --log on a 640x480 photograph: the tree, its raw dumps against
     the pyramid route on the card bit for bit and against the CPU's dump,
     and the job's features unchanged by --log."""
-    import types
     from popsift_torch.debugdump import DIRS, dump_all
     from popsift_torch.extract import extract_features, make_plan
 
@@ -3024,8 +3023,7 @@ def check_log_tree(pt, tmp: Path) -> dict:
         got = ps.enqueue(w, h, img).get()
     require(features_equal(got, feats), "log_mode=ALL moved the features")
     cpu_dir = tmp / "log-cpu"
-    dump_all(logged, types.SimpleNamespace(_w=w, _h=h, _image_data=img),
-             "pyramid", base_dir=str(cpu_dir), device="cpu")
+    dump_all(logged, img, "pyramid", base_dir=str(cpu_dir), device="cpu")
     worst = 0.0
     for name, p in tree.items():
         if name.endswith(".dump"):
@@ -3846,17 +3844,23 @@ def run_stage_in(torch, pt, scenes, smi: str) -> dict:
     row stride, AliceVision's configuration) and a 1080p byte frame go
     through ``enqueue`` with the recorder on, the caller zeroing its
     array at once: the job's device image bit-equal to the upload it
-    replaced (``pipeline.upload_image`` of the array), its features
+    replaced (the array's pageable upload, floats normalised on the host
+    first), its features
     bit-equal to ``extract_features`` of that upload, the photograph in
     more than one band and the frame in one.  Prints the bands, the
     ``stage_in`` and ``upload`` spans, and the staging's time against the
     replaced host copy and pageable upload (medians of 5, printed only)."""
     from benchmark.inputs.photo_float import make_canvas
     from benchmark.run import make_config
-    from popsift_torch import pipeline, tracing
-    from popsift_torch.extract import extract_features
+    from popsift_torch import tracing
+    from popsift_torch.extract import extract_features, normalize_input
     print("phase 14: the stage-in ring", flush=True)
     dev = torch.device("cuda")
+
+    def upload(image):
+        if image.dtype != np.uint8:
+            image = normalize_input(image)
+        return torch.from_numpy(np.ascontiguousarray(image)).to(dev)
     av = json.loads((HERE / "benchmark" / "configs"
                      / "alicevision-popsift-24mp.json").read_text())
     canvas = make_canvas([24, 1], 4000 + 40, 6000 + 40)
@@ -3868,7 +3872,7 @@ def run_stage_in(torch, pt, scenes, smi: str) -> dict:
     was = tracing.HOSTTRACE
     for label, cfg, imode, image in cases:
         h, w = image.shape
-        plain = pipeline.upload_image(image, dev)
+        plain = upload(image)
         want = extract_features(plain, cfg, dev)
         tracing.host_trace_snapshot(clear=True)
         tracing.enable(True)
@@ -3890,7 +3894,7 @@ def run_stage_in(torch, pt, scenes, smi: str) -> dict:
 
                 def replaced():
                     np.copyto(buf, image)
-                    pipeline.upload_image(buf, dev)
+                    upload(buf)
                     torch.cuda.synchronize(dev)
 
                 def staged():

@@ -42,15 +42,11 @@ def format_desc_row(x: float, y: float, sigma: float, ori_rad: float,
     return head + " ".join(f"{float(v):.5g}" for v in desc) + " \n"
 
 
-def dump_all(config: Config, job, basename: str, base_dir: str = ".",
+def dump_all(config: Config, image, basename: str, base_dir: str = ".",
              device="cuda") -> None:
-    """Dump pyramid/DoG images and descriptor text files for one job,
-    extracting its image again on ``device`` (the pipeline's) with every
-    octave's whole stack and DoG: its host copy, or where it has none
-    (a job staged onto the card) its device image."""
-    image = job._image_data
-    if image is None:
-        image = job.get_img()
+    """Dump pyramid/DoG images and descriptor text files for one image,
+    an (H, W) array or tensor (a pipeline job's ``get_img()``), extracting
+    it again on ``device`` with every octave's whole stack and DoG."""
     feats, stacks, dogs = extract_features(image, config, device,
                                            return_pyramid=True)
     oct_dir, octd_dir, dog_dir, dogt_dir, dogd_dir, desc_dir, fpt_dir = (

@@ -37,7 +37,6 @@ import subprocess
 import sys
 import tarfile
 import tempfile
-import types
 
 import numpy as np
 
@@ -102,8 +101,7 @@ def produce_output_tree(image: np.ndarray, out_dir: str,
         shutil.rmtree(out_dir)
     os.makedirs(out_dir)
     config = reference_protocol_config()
-    dump_all(config, types.SimpleNamespace(_image_data=image), "pyramid",
-             base_dir=out_dir, device=device)
+    dump_all(config, image, "pyramid", base_dir=out_dir, device=device)
 
     sort_into(os.path.join(out_dir, "dir-fpt", "desc-pyramid.txt"),
               os.path.join(out_dir, "keypoints.txt"))

@@ -8,10 +8,12 @@ the grid filter over all of them (:func:`filter_extrema`; the two are
 :func:`image_keypoints`), then stage 2, orientation and descriptors, in
 one pass over the extrema of every octave (:func:`stage2_features`: one
 orientation launch, one descriptor launch and one download an image,
-each kernel taking a table of the octaves), which :func:`extract_features`
-assembles.  They read the candidate and extremum counts back to the host
-per octave in stage 1 and the descriptor rows once in stage 2 (shapes are
-dynamic on the GPU, so there are no compile buckets).  Each phase runs in
+each kernel taking a table of the octaves).  Stage 2 hands over one
+feature-ordered record, :class:`~popsift_torch.features.Stage2Result`,
+which :func:`extract_features` assembles as it is.  They read the
+candidate and extremum counts back to the host per octave in stage 1 and
+the descriptor rows once in stage 2 (shapes are dynamic on the GPU, so
+there are no compile buckets).  Each phase runs in
 a :func:`~popsift_torch.tracing.scope` (pyramid, detect, filter,
 orientation, descriptors, download, assemble).  With the host-span
 recorder on (``POPSIFT_TPU_HOSTTRACE=1`` or ``tracing.enable()``) the
@@ -39,8 +41,8 @@ import torch
 from .config import (Config, DescMode, GaussMode, NormMode, ScalingMode,
                      SiftMode, check_supported)
 from .constants import ORIENTATION_MAX_COUNT, ConstInfo, build_const_info
-from .features import (FeaturesDev, FeaturesHost, assemble_features,
-                       assemble_features_dev)
+from .features import (FeaturesDev, FeaturesHost, Stage2Result,
+                       assemble_features, assemble_features_dev)
 from .gauss import build_gauss_info
 from .kernels.binwin import (desc_loop_octaves, desc_loop_stack_octaves,
                              ori_peaks_octaves, ori_peaks_stack_octaves,
@@ -278,17 +280,15 @@ def dispatch_descriptors(plan: ExtractorPlan, consts: ConstInfo | None,
 def stage2_features(plan: ExtractorPlan, octaves: list, desc_transfer: str,
                     consts: ConstInfo | None = None,
                     stack_kernels: bool = False,
-                    want_dev: bool = False) -> list:
+                    want_dev: bool = False) -> Stage2Result:
     """Stage 2 of the octaves ``octaves``, each (o, stack, field, Extrema)
     in ascending o, in one pass: the extrema of every octave end to end,
     one orientation launch (K5, or K10 with ``stack_kernels``), one
     :func:`descriptor_rows`, one descriptor launch, one normalisation and
     quantisation, and one download of two arrays (the keypoints' numbers
-    packed, and the descriptors).  Returns per octave a dict of host
-    arrays (``x, y, sigma, num_ori, orientations, desc``, slices of the
-    download), but with ``want_dev`` the descriptors (``desc``) stay a
-    float32 tensor on the device; ``overflow`` and ``ori_count``, the
-    octave's descriptor rows before the orientation capacity's clamp.
+    packed, and the descriptors).  Returns the download as it arrived, a
+    :class:`~popsift_torch.features.Stage2Result` in feature order, whose
+    descriptors with ``want_dev`` stay a float32 tensor on the device.
     Orientation and loop descriptors read each octave's ``field``, or
     ``stack`` with ``stack_kernels``; a field left None is computed from
     the stack (K2).  ``consts`` is needed by the NoTile and IGrid modes
@@ -302,7 +302,7 @@ def stage2_features(plan: ExtractorPlan, octaves: list, desc_transfer: str,
     meta = np.zeros((0, 4 + ORIENTATION_MAX_COUNT), np.float32)
     desc = (torch.zeros((0, 128), dtype=torch.float32, device=dev)
             if want_dev else np.zeros((0, 128), np.float32))
-    before = rows = []
+    counted = {}
     if live:
         stacks = [st for _, st, _, _ in live]
         fields = None
@@ -321,6 +321,7 @@ def stage2_features(plan: ExtractorPlan, octaves: list, desc_transfer: str,
                                                   sigma)
             feat, ang, num_eff, before, rows = descriptor_rows(
                 plan, octs, counts, num_ori, oris)
+            counted = dict(zip(octs, zip(before, rows)))
         with scope("descriptors", dev):
             d = dispatch_descriptors(plan, consts, stacks, fields, rows,
                                      x[feat], y[feat], lpos[feat],
@@ -336,34 +337,13 @@ def stage2_features(plan: ExtractorPlan, octaves: list, desc_transfer: str,
                 "readback.download")
             desc = (quantize_descs_dev if want_dev else quantize_descs)(
                 d, desc_transfer, plan.norm_multi)
-    # per octave its rows before and after the clamp
-    counted = dict(zip(octs, zip(before, rows)))
-    out = []
-    s = r = 0
-    for o, _, _, e in octaves:
-        total, n_rows = counted.get(o, (0, 0))
-        m = meta[s:s + e.count]
-        out.append(dict(x=m[:, 0], y=m[:, 1], sigma=m[:, 2],
-                        num_ori=m[:, 3].astype(np.int32),
-                        orientations=m[:, 4:], desc=desc[r:r + n_rows],
-                        overflow=e.overflow, ori_count=total))
-        s += e.count
-        r += n_rows
-    return out
-
-
-def extract_octave_features(plan: ExtractorPlan, o: int, stack, dog,
-                            desc_transfer: str, field=None,
-                            consts: ConstInfo | None = None,
-                            stack_kernels: bool = False,
-                            want_dev: bool = False) -> dict:
-    """Everything after the pyramid for octave ``o`` without the grid
-    filter: :func:`octave_keypoints` on ``dog``, then
-    :func:`stage2_features` of the octave alone."""
-    _, ext = octave_keypoints(plan, o, dog)
-    return stage2_features(plan, [(o, stack, field, ext)], desc_transfer,
-                           consts=consts, stack_kernels=stack_kernels,
-                           want_dev=want_dev)[0]
+    before, rows = zip(*(counted.get(o, (0, 0)) for o, _, _, _ in octaves))
+    return Stage2Result(
+        keypoints=meta,
+        octave=np.repeat(np.array([o for o, _, _, _ in octaves], np.int32),
+                         [e.count for _, _, _, e in octaves]),
+        desc=desc, overflow=tuple(e.overflow for _, _, _, e in octaves),
+        ori_count=before, rows=rows)
 
 
 def octave_keypoints_all(plan: ExtractorPlan, gauss, img: torch.Tensor,
@@ -459,14 +439,14 @@ def extract_octaves(image, config: Config, plan: ExtractorPlan, device,
                     want_dev: bool = False, ks: tuple | None = None,
                     return_pyramid: bool = False) -> tuple:
     """Stage 1, the grid filter and stage 2 of one (H, W) image under
-    ``plan``: per octave the dict of :func:`octave_features`.  With ``ks``
-    only the first ``ks[o]`` extrema of octave o go on to stage 2 (a
-    compile bucket's clamp; their ``overflow`` is not raised).
+    ``plan``.  With ``ks`` only the first ``ks[o]`` extrema of octave o go
+    on to stage 2 (``parallel/batch.py``'s key; their ``overflow`` is not
+    raised).
     :func:`stack_kernels_enabled` is read once, here, and holds for the
     whole image.  Every octave's stack and field stay on the device until
     its descriptors are done, since the grid filter needs every octave's
-    extrema first.  Returns (octaves, stacks, dogs), the last two None
-    unless ``return_pyramid``."""
+    extrema first.  Returns (the :func:`stage2_features` result, stacks,
+    dogs), the last two None unless ``return_pyramid``."""
     img = to_unit_image(image, device)
     stack_kernels = stack_kernels_enabled()
     # NoTile and IGrid need the two descriptor tables
@@ -480,15 +460,13 @@ def extract_octaves(image, config: Config, plan: ExtractorPlan, device,
             for o, (stack, field, ext) in enumerate(stage1)]
     del stage1
     sp = tracing.begin("stage2") if tracing.HOSTTRACE else None
-    octaves = stage2_features(plan, octs, config.desc_transfer,
-                              consts=consts, stack_kernels=stack_kernels,
-                              want_dev=want_dev)
+    res = stage2_features(plan, octs, config.desc_transfer, consts=consts,
+                          stack_kernels=stack_kernels, want_dev=want_dev)
     if sp is not None:
         tracing.end(sp)
     if tracing.HOSTTRACE:
-        tracing.host_trace("descriptors", None,
-                           n=sum(int(od["desc"].shape[0]) for od in octaves))
-    return octaves, stacks, dogs
+        tracing.host_trace("descriptors", None, n=int(res.desc.shape[0]))
+    return res, stacks, dogs
 
 
 def extract_features(image, config: Config, device="cuda",
@@ -513,15 +491,15 @@ def extract_features(image, config: Config, device="cuda",
         check_supported(config)
         h, w = np.shape(image)
         plan = make_plan(config, w, h)
-        octaves, stacks, dogs = extract_octaves(
+        res, stacks, dogs = extract_octaves(
             image, config, plan, device, want_dev=want_dev,
             return_pyramid=return_pyramid)
         with scope("assemble", device):
             if want_dev:
-                feats = assemble_features_dev(octaves, plan.upscale_factor,
+                feats = assemble_features_dev(res, plan.upscale_factor,
                                               device)
             else:
-                feats = assemble_features(octaves, plan.upscale_factor)
+                feats = assemble_features(res, plan.upscale_factor)
     finally:
         if sp is not None:
             tracing.end(sp)

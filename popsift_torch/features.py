@@ -5,13 +5,16 @@ descriptor matrix, with the STL-style iteration and the ``print`` text
 format of the reference (features.cu:310-330).  :class:`FeaturesDev`
 (MatchingMode) keeps the descriptor matrix on the pipeline's device, with
 the reverse descriptor-to-feature map and a brute-force :meth:`match`.
+Both are assembled from :class:`Stage2Result`, the one feature-ordered
+record that stage 2 downloads for an image, in whole-image operations,
+with the descriptors as they arrived.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -206,67 +209,76 @@ class FeaturesDev(FeaturesBase):
 Features = FeaturesHost
 
 
-def _assemble_soa(octaves: list[dict], upscale_factor: float) -> dict:
+class Stage2Result(NamedTuple):
+    """One image's stage 2 (:func:`popsift_torch.extract.stage2_features`)
+    as it was downloaded, in feature order: the extrema of every octave
+    end to end in ascending octave, and the descriptor rows of each
+    extremum after those of the extrema before it.
+
+    ``keypoints`` is the packed (n, 4 + ORIENTATION_MAX_COUNT) float32
+    download: ``x, y, sigma`` in the octave's own pixels, ``num_ori``
+    clamped to the descriptor rows its octave produced, and the
+    orientations.  ``octave`` is each extremum's octave (int32), ``desc``
+    the (rows, 128) float32 descriptors, a host array or a tensor on the
+    device.  Per entry of the pass's octave list: ``overflow``, the
+    extrema its capacity dropped; ``ori_count`` and ``rows``, its
+    descriptor rows before and after the orientation capacity's clamp."""
+
+    keypoints: np.ndarray
+    octave: np.ndarray
+    desc: np.ndarray | torch.Tensor
+    overflow: tuple[int, ...]
+    ori_count: tuple[int, ...]
+    rows: tuple[int, ...]
+
+    @property
+    def num_ori(self) -> np.ndarray:
+        return self.keypoints[:, 3].astype(np.int32)
+
+    @property
+    def orientations(self) -> np.ndarray:
+        return self.keypoints[:, 4:]
+
+
+def _assemble_soa(res: Stage2Result, upscale_factor: float) -> dict:
     """The feature arrays of :func:`assemble_features` (all but the
-    descriptors)."""
-    parts = {k: [] for k in FeaturesHost._EMPTY}
-    base = 0
+    descriptors): each row scaled by its octave's 2^(octave - upscale),
+    its descriptor rows from one running sum of ``num_ori``."""
+    kp = res.keypoints
+    num = res.num_ori
+    n_oct = int(res.octave.max()) + 1 if num.size else 0
+    scale = np.array([2.0 ** (o - upscale_factor) for o in range(n_oct)],
+                     np.float32)[res.octave]
     kk = np.arange(ORIENTATION_MAX_COUNT, dtype=np.int64)[None, :]
-    for o, od in enumerate(octaves):
-        n = od["x"].shape[0]
-        if n:
-            scale = np.float32(2.0 ** (o - upscale_factor))
-            num = od["num_ori"].astype(np.int32)
-            idx0 = base + np.cumsum(num, dtype=np.int64) - num
-            keep = kk < num[:, None]
-            parts["xpos"].append(od["x"] * scale)
-            parts["ypos"].append(od["y"] * scale)
-            parts["sigma"].append(od["sigma"] * scale)
-            parts["num_ori"].append(num)
-            parts["orientation"].append(
-                np.where(keep, od["orientations"], np.float32(0.0))
-                .astype(np.float32))
-            parts["desc_idx"].append(np.where(keep, idx0[:, None] + kk, -1))
-            parts["debug_octave"].append(np.full(n, o, np.int32))
-        base += od["desc"].shape[0]
-    return {k: (np.concatenate(v, axis=0) if v
-                else np.zeros(*FeaturesHost._EMPTY[k]))
-            for k, v in parts.items()}
+    keep = kk < num[:, None]
+    first = np.cumsum(num, dtype=np.int64) - num
+    return dict(
+        xpos=kp[:, 0] * scale, ypos=kp[:, 1] * scale,
+        sigma=kp[:, 2] * scale, num_ori=num,
+        orientation=np.where(keep, res.orientations, np.float32(0.0)),
+        desc_idx=np.where(keep, first[:, None] + kk, -1),
+        debug_octave=res.octave)
 
 
-def assemble_features(octaves: list[dict],
+def assemble_features(res: Stage2Result,
                       upscale_factor: float) -> FeaturesHost:
-    """Host features from per-octave results (prep_features,
+    """Host features from one image's stage 2 (prep_features,
     sift_pyramid.cu:250-280): coordinates and sigma scaled by
-    2^(octave - upscale), octaves in ascending order, descriptor rows in
-    feature order.
-
-    Each ``octaves[o]`` holds numpy arrays ``x, y, sigma`` (count,),
-    ``num_ori`` (count,) already clamped to the descriptor rows the octave
-    produced, ``orientations`` (count, 4) and ``desc`` (rows, 128)."""
-    soa = _assemble_soa(octaves, upscale_factor)
-    descs = [od["desc"] for od in octaves]
-    descriptors = (np.concatenate(descs, axis=0) if descs
-                   else np.zeros((0, 128), np.float32))
-    return FeaturesHost(descriptors=descriptors, soa=soa)
+    2^(octave - upscale), the descriptors as they were downloaded."""
+    return FeaturesHost(descriptors=res.desc,
+                        soa=_assemble_soa(res, upscale_factor))
 
 
-def assemble_features_dev(octaves: list[dict], upscale_factor: float,
+def assemble_features_dev(res: Stage2Result, upscale_factor: float,
                           device) -> FeaturesDev:
     """:func:`assemble_features` with the descriptors left where they are
-    (clone_device_descriptors, sift_pyramid.cu:324-362): each
-    ``octaves[o]["desc"]`` is a float32 tensor on ``device``, and the
-    matrix is their concatenation there.  The features are the host
-    features' ``xpos, ypos, sigma, num_ori``; the reverse map repeats each
-    feature's index by its ``num_ori``, as the JAX package's packed path
-    derives it (popsift_tpu/staged.py:1402-1412)."""
-    soa = _assemble_soa(octaves, upscale_factor)
-    descs = [od["desc"] for od in octaves]
-    descriptors = (torch.cat(descs, dim=0) if descs
-                   else torch.zeros((0, 128), dtype=torch.float32,
-                                    device=device))
+    (clone_device_descriptors, sift_pyramid.cu:324-362): ``res.desc`` is a
+    float32 tensor on ``device``, the pipeline's.  The features are the
+    host features' ``xpos, ypos, sigma, num_ori``; the reverse map repeats
+    each feature's index by its ``num_ori``, as the JAX package's packed
+    path derives it (popsift_tpu/staged.py:1402-1412)."""
+    soa = _assemble_soa(res, upscale_factor)
     num = soa["num_ori"]
-    m = int(descriptors.shape[0])
-    rev = np.repeat(np.arange(num.shape[0], dtype=np.int64), num)[:m]
+    rev = np.repeat(np.arange(num.shape[0], dtype=np.int64), num)
     features = {k: soa[k] for k in ("xpos", "ypos", "sigma", "num_ori")}
-    return FeaturesDev(features, descriptors, rev)
+    return FeaturesDev(features, res.desc, rev)

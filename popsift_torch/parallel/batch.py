@@ -247,20 +247,18 @@ class KeyedExtractor:
         extrema beyond ks (the first ks are oriented, _stage2_body) are
         dropped without a mark in ``overflow``."""
         _, ks, bs, _, bt = key
-        octaves, _, _ = extract_octaves(image, self.config,
-                                        self.keyed_plan(key), self.device,
-                                        want_dev=True, ks=ks)
-        rows = torch.cat([od["desc"] for od in octaves])
-        ori_total = int(rows.shape[0])
+        res, _, _ = extract_octaves(image, self.config,
+                                    self.keyed_plan(key), self.device,
+                                    want_dev=True, ks=ks)
+        ori_total = int(res.desc.shape[0])
         n = min(ori_total, max(bt, 1))
         desc = torch.zeros((max(bt, 1), 128), dtype=torch.float32,
                            device=self.device)
-        desc[:n] = rows[:n]
+        desc[:n] = res.desc[:n]
         return dict(desc=desc, ori_total=ori_total,
-                    ext_total=sum(len(od["x"]) for od in octaves),
-                    overflow=sum(od["overflow"]
-                                 + max(od["ori_count"] - b, 0)
-                                 for od, b in zip(octaves, bs)))
+                    ext_total=int(res.octave.shape[0]),
+                    overflow=sum(v + max(c - b, 0) for v, c, b in
+                                 zip(res.overflow, res.ori_count, bs)))
 
 
 def _global_batch(images, height: int, width: int):

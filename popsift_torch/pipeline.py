@@ -1,16 +1,17 @@
 """The PopSift host pipeline (popsift_tpu/pipeline.py, popsift.{h,cpp}).
 
 ``PopSift.enqueue`` takes the image in, queues a :class:`SiftJob` and
-returns it at once; the caller may then reuse its array.  On a CUDA
-device it stages the image straight into the job's device tensor, band
-by band, through a small ring of page-locked host slots that the
-``PopSift`` owns (:class:`StageIn`): the card's DMA of one band runs on a
-stream of its own while the host copies the next into another slot, and
-a float64 image is cast to float32 band by band.  A 24 MP float
-photograph's 96 MB takes 23 bands of 4 MB; a 1080p byte frame takes one.
-On the CPU the job keeps a host copy of the image, which its upload
-shares.  Worker threads extract the jobs on the pipeline's device and
-fulfil each job's future, errors included (popsift.cpp:306-383).
+returns it at once; the caller may then reuse its array.  It stages the
+image straight into the job's device tensor, band by band, through a
+small ring of host slots that the ``PopSift`` owns (:class:`StageIn`),
+and a float64 image is cast to float32 band by band.  On a CUDA device
+the slots are page-locked and the card's DMA of one band runs on a
+stream of its own while the host copies the next into another slot; on
+the CPU the same bands are plain copies.  A 24 MP float photograph's
+96 MB takes 23 bands of 4 MB; a 1080p byte frame takes one.  The job
+keeps no host copy.  Worker threads extract the jobs on the pipeline's
+device and fulfil each job's future, errors included
+(popsift.cpp:306-383).
 ExtractingMode runs one worker, which extracts the jobs in order and
 downloads the features (``get`` / ``get_host``).  MatchingMode runs
 ``workers`` of them, as the JAX package runs that many match-prepare
@@ -41,12 +42,12 @@ Tracing (:mod:`popsift_torch.tracing`): ``enqueue`` gives each job its
 request number (``SiftJob.request``), and with the recorder on
 (``POPSIFT_TPU_HOSTTRACE=1`` or ``tracing.enable()``) opens the job's
 root span ``job`` first, which ends when a worker has finished the job;
-on a CUDA device its ``stage_in`` span over the banded copy on the
-caller's thread, with the series ``#stage_in.bands`` (the bands of the
-image); and its ``queue`` span, which ends when a worker takes it.  The
-worker makes the job's number its thread's request, so the job's
-``upload`` span (on a CUDA device the wait for the staging, on the CPU
-the image's upload) and every span of its extraction carry it.
+its ``stage_in`` span over the banded copy on the caller's thread, with
+the series ``#stage_in.bands`` (the bands of the image); and its
+``queue`` span, which ends when a worker takes it.  The worker makes the
+job's number its thread's request, so the job's ``upload`` span (the
+taking of the staged image, on a CUDA device the wait for the staging)
+and every span of its extraction carry it.
 ``uninit`` prints the host trace's summary.
 """
 
@@ -67,7 +68,7 @@ from .debugdump import dump_all
 # Shape preflight (the reference checks texture limits,
 # popsift.cpp:168-196; here the octave-0 stack must fit device memory)
 from .device import MAX_INPUT_DIM, MAX_OCTAVE0_PIXELS
-from .extract import extract_features, normalize_input
+from .extract import extract_features
 from .features import FeaturesBase, FeaturesDev, FeaturesHost
 from . import tracing
 
@@ -83,15 +84,15 @@ class AllocTest(enum.Enum):
 class SiftJob:
     """Async extraction job (popsift.h:44-100).  The caller's buffer can
     be reused as soon as the job exists: the constructor copies
-    ``image_data`` into the job's host buffer, or, given None, leaves the
-    image to ``PopSift.enqueue``, which on a CUDA device stages it onto
-    the card before it returns.  A failed job holds None and its error:
-    ``get_base`` returns None, ``get_host`` and ``get_dev`` raise the
-    error (popsift_tpu/pipeline.py:86-108).  ``get_img`` is the image a
-    worker set on the pipeline's device (SiftJob::setImg): None before a
-    worker takes the job and after a failed upload or staging.
-    ``request`` is the number ``PopSift.enqueue`` gave the job, which its
-    host spans carry."""
+    ``image_data`` into the job's host buffer (popsift.cpp:385-425), or,
+    given None, as ``PopSift.enqueue`` gives it, leaves the image to
+    ``enqueue``, which stages it onto the device before it returns.  A
+    failed job holds None and its error: ``get_base`` returns None,
+    ``get_host`` and ``get_dev`` raise the error
+    (popsift_tpu/pipeline.py:86-108).  ``get_img`` is the image a worker
+    set on the pipeline's device (SiftJob::setImg): None before a worker
+    takes the job and after a failed staging.  ``request`` is the number
+    ``PopSift.enqueue`` gave the job, which its host spans carry."""
 
     def __init__(self, w: int, h: int, image_data: np.ndarray | None,
                  config: Config) -> None:
@@ -160,15 +161,6 @@ def _device(device) -> torch.device:
         raise ValueError(f"PopSift(device={device!r}): a CUDA device or "
                          f"'cpu'")
     return dev
-
-
-def upload_image(image: np.ndarray, device: torch.device) -> torch.Tensor:
-    """The job's image on ``device`` as the JAX pipeline uploads it
-    (popsift_tpu/pipeline.py:369-376): bytes as they are, other input
-    normalised on the host first."""
-    if image.dtype != np.uint8:
-        image = normalize_input(image)
-    return torch.from_numpy(np.ascontiguousarray(image)).to(device)
 
 
 # The stage-in ring: SLOTS host slots of SLOT_BYTES each.  A slot is
@@ -283,9 +275,8 @@ class PopSift:
         self._config = config.clone() if config is not None else Config()
         self._config.levels = max(2, self._config.levels)
         self._queue: queue.Queue = queue.Queue()
-        # on a CUDA device enqueue stages each image onto the card
-        self._stage_in = (StageIn(self._device)
-                          if self._device.type == "cuda" else None)
+        # enqueue stages each image onto the device
+        self._stage_in = StageIn(self._device)
         n = (max(1, int(workers))
              if self._proc_mode == ProcessingMode.MATCHING else 1)
         self._threads = [threading.Thread(target=self._worker_loop,
@@ -368,9 +359,6 @@ class PopSift:
                 raise RuntimeError(
                     "Image mode error\nE    Cannot load byte images into a "
                     "PopSift pipeline configured for float images")
-            if self._stage_in is None:
-                # SiftJob copies the image: no second copy of a float32 one
-                arr = arr.astype(np.float32, copy=False)
         fit = self.test_texture_fit(w, h)
         if fit != AllocTest.Ok:
             print("Image too large\n"
@@ -380,11 +368,8 @@ class PopSift:
         request = tracing.new_request()
         root = (tracing.begin_detached("job", request)
                 if tracing.HOSTTRACE else None)
-        if self._stage_in is None:
-            job = SiftJob(w, h, arr, self._config)
-        else:
-            job = SiftJob(w, h, None, self._config)
-            self._stage(job, arr.reshape(h, w), request, root)
+        job = SiftJob(w, h, None, self._config)
+        self._stage(job, arr.reshape(h, w), request, root)
         job.request, job._root = request, root
         if root is not None:
             job._queued = tracing.begin_detached("queue", request, root)
@@ -393,8 +378,9 @@ class PopSift:
 
     def _stage(self, job: SiftJob, image: np.ndarray, request: int,
                root: tuple | None) -> None:
-        """Stage ``image`` onto the card for ``job``; a CUDA error is the
-        job's, which the worker reports through it."""
+        """Stage ``image`` onto the device for ``job``; an error (on a CUDA
+        device a CUDA error) is the job's, which the worker reports
+        through it."""
         sp = (tracing.begin_detached("stage_in", request, root)
               if root is not None else None)
         dtype = (np.uint8 if self._image_mode == ImageMode.BYTE
@@ -440,7 +426,7 @@ class PopSift:
                                          self._device, want_dev=want_dev)
                 if (not want_dev
                         and job._config.log_mode == LogMode.ALL):
-                    dump_all(job._config, job, "pyramid",
+                    dump_all(job._config, job.get_img(), "pyramid",
                              device=self._device)
             except BaseException as e:  # noqa: BLE001 - reported via the job
                 self._job_done(job)
@@ -450,12 +436,9 @@ class PopSift:
                 job.set_features(feats)
 
     def _take_image(self, job: SiftJob) -> torch.Tensor:
-        """The job's image on the device: its upload where it has a host
-        copy, else its staged tensor; on a CUDA device once this thread's
+        """The job's staged tensor; on a CUDA device once this thread's
         stream waits for the staging and the allocator knows that stream
         reads the tensor."""
-        if self._stage_in is None:
-            return upload_image(job._image_data, self._device)
         if job._stage_err is not None:
             raise job._stage_err
         img, job._staged = job._staged, None

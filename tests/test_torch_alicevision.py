@@ -180,11 +180,12 @@ def test_a_job_holds_its_own_copy_of_the_image(layout):
     with pt.PopSift(make_config(pt, CONFIG), imode=imode,
                     device="cpu") as ps:
         job = ps.enqueue(48, 32, image)
-        held = job._image_data
-        want = image.astype(held.dtype)
+        want = image.astype(np.uint8 if layout == "uint8" else np.float32)
         image[...] = 0        # the caller reuses its buffer at once
         assert job.get() is not None
-    assert held.shape == (32, 48) and held.flags.c_contiguous
-    assert held.dtype == (np.uint8 if layout == "uint8" else np.float32)
-    assert not np.shares_memory(held, image)
-    np.testing.assert_array_equal(held, want)
+    held = job.get_img()
+    assert tuple(held.shape) == (32, 48) and held.is_contiguous()
+    assert held.dtype == (torch.uint8 if layout == "uint8"
+                          else torch.float32)
+    assert not np.shares_memory(held.numpy(), image)
+    np.testing.assert_array_equal(held.numpy(), want)

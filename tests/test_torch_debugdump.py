@@ -82,7 +82,7 @@ def dumps(textured_image, tmp_path_factory):
     tdir = tmp_path_factory.mktemp("torch")
     jdump.dump_all(jax_config(cfg), job, "pyramid", base_dir=str(jdir))
     with one_thread():
-        tdump.dump_all(cfg, job, "pyramid", base_dir=str(tdir),
+        tdump.dump_all(cfg, img, "pyramid", base_dir=str(tdir),
                        device="cpu")
     return img, cfg, _tree(jdir), _tree(tdir)
 

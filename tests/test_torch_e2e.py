@@ -128,10 +128,12 @@ def _after_pyramid(img):
     stacks, dogs = _jax_pyramid(img)
     cfg = popsift_torch.Config()
     plan = text.make_plan(cfg, img.shape[1], img.shape[0])
-    octaves = [text.extract_octave_features(
-        plan, o, torch.as_tensor(stacks[o]), torch.as_tensor(dogs[o]),
-        cfg.desc_transfer) for o in range(plan.octaves)]
-    return assemble_features(octaves, plan.upscale_factor)
+    octaves = [(o, torch.as_tensor(stacks[o]), None,
+                text.octave_keypoints(plan, o, torch.as_tensor(dogs[o]))[1])
+               for o in range(plan.octaves)]
+    return assemble_features(
+        text.stage2_features(plan, octaves, cfg.desc_transfer),
+        plan.upscale_factor)
 
 
 def _tied_features(img) -> np.ndarray:

@@ -44,7 +44,8 @@ from popsift_tpu import features as jfeat  # noqa: E402
 import popsift_torch as pt  # noqa: E402
 from popsift_torch.extract import (extract_features,  # noqa: E402
                                    quantize_descs, quantize_descs_dev)
-from popsift_torch.features import assemble_features_dev  # noqa: E402
+from popsift_torch.features import (Stage2Result,  # noqa: E402
+                                    assemble_features_dev)
 
 SCENES = Path(__file__).parent / "data" / "scenes"
 H, W = 128, 160
@@ -221,7 +222,10 @@ def test_want_dev_with_other_transfers(pair, mode):
 
 
 def test_empty_features_dev():
-    empty = assemble_features_dev([], 1.0, "cpu")
+    empty = assemble_features_dev(Stage2Result(
+        keypoints=np.zeros((0, 8), np.float32), octave=np.zeros(0, np.int32),
+        desc=torch.zeros((0, 128)), overflow=(), ori_count=(), rows=()),
+        1.0, "cpu")
     assert empty.get_feature_count() == empty.get_descriptor_count() == 0
     assert tuple(empty.get_descriptors().shape) == (0, 128)
     assert empty.get_reverse_map().shape == (0,)

@@ -1,5 +1,5 @@
 """The stage-in ring (``pipeline.StageIn``), through which ``PopSift.enqueue``
-stages each image onto a CUDA card band by band.
+stages each image onto its device band by band.
 
 Only the slots' pinning, the ring's stream and its events depend on the
 device, so on the CPU the same banding runs with plain slots:
@@ -12,11 +12,13 @@ device, so on the CPU the same banding runs with plain slots:
   number of bands follows the shape, and one ring stages image after
   image, its slots taken in turn, keeping the slots' views for the last
   few shapes only;
-* a ``PopSift`` on the CPU keeps its host copy and has no ring; given a
-  CPU ring, its jobs take the staged path end to end: the features of
-  the host-copy path, the ``stage_in`` span inside the job's span with
-  the ``#stage_in.bands`` series, a staging error reported through the
-  job, and the ``--log`` tree written from the staged image.
+* a ``PopSift`` on the CPU stages through a CPU ring of its own, whose
+  tensor is the job's one copy of the image; with small slots its jobs
+  give the features of ``extract_features`` of the caller's array, the
+  ``stage_in`` span inside the job's span with the ``#stage_in.bands``
+  series, a staging error reported through the job, and the ``--log``
+  tree written from the staged image equal to ``dump_all`` of the
+  array.
 
 Marked ``card``, and skipped without one: an odd-shaped float photograph
 and a byte frame through a real ``PopSift`` on the card, the device image
@@ -40,6 +42,7 @@ from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 import popsift_torch as pt  # noqa: E402
 from popsift_torch import pipeline, tracing  # noqa: E402
+from popsift_torch.debugdump import dump_all  # noqa: E402
 from popsift_torch.device import MAX_INPUT_DIM  # noqa: E402
 from popsift_torch.extract import extract_features  # noqa: E402
 
@@ -178,8 +181,8 @@ def _inputs(kind: str):
 
 
 def _staging(ps: pt.PopSift, monkeypatch) -> pt.PopSift:
-    """``ps`` on the CPU with a CPU ring of small slots: its jobs take the
-    staged path, with no stream and no events."""
+    """``ps`` on the CPU with a ring of small slots, so that its images
+    take several bands."""
     ps._stage_in = _ring(monkeypatch, SMALL_SLOT)
     return ps
 
@@ -192,21 +195,29 @@ def _same_features(a, b) -> None:
 
 
 def test_the_cpu_device_keeps_its_host_copy():
+    """On the CPU the job's image is staged through the pipeline's own
+    ring, with no stream and no events: the staged tensor is the job's
+    one copy of the image."""
     img = _image()
+    want = img.copy()
     with pt.PopSift(pt.Config(), device="cpu") as ps:
-        assert ps._stage_in is None
+        ring = ps._stage_in
+        assert isinstance(ring, pipeline.StageIn)
+        assert ring._stream is None and ring._events is None
         job = ps.enqueue(img.shape[1], img.shape[0], img)
+        img[...] = 0          # the caller reuses its buffer at once
         assert job.get().get_feature_count() > 0
-    np.testing.assert_array_equal(job._image_data, img)
-    assert job.get_img().data_ptr() == job._image_data.ctypes.data
+    assert job._image_data is None
+    got = job.get_img()
+    assert got.device == CPU and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("kind", ["byte", "float64", "float32-window"])
 def test_a_staged_job_gives_the_host_copys_features(kind, monkeypatch):
     imode, image = _inputs(kind)
     h, w = image.shape
-    with pt.PopSift(pt.Config(), imode=imode, device="cpu") as ps:
-        want = ps.enqueue(w, h, image).get()
+    want = extract_features(image, pt.Config(), "cpu")
     with _staging(pt.PopSift(pt.Config(), imode=imode, device="cpu"),
                   monkeypatch) as ps:
         job = ps.enqueue(w, h, image)
@@ -282,11 +293,12 @@ def test_log_mode_all_dumps_the_staged_image(tmp_path, monkeypatch):
     for side in ("copy", "staged"):
         (tmp_path / side).mkdir()
         monkeypatch.chdir(tmp_path / side)
-        ps = pt.PopSift(cfg, device="cpu")
-        if side == "staged":
-            _staging(ps, monkeypatch)
-        with ps:
-            feats = ps.enqueue(w, h, img).get()
+        if side == "copy":
+            dump_all(cfg, img, "pyramid", device="cpu")
+            feats = extract_features(img, cfg, "cpu")
+        else:
+            with _staging(pt.PopSift(cfg, device="cpu"), monkeypatch) as ps:
+                feats = ps.enqueue(w, h, img).get()
         trees[side] = (sorted(p.relative_to(tmp_path / side)
                               for p in (tmp_path / side).rglob("*")
                               if p.is_file()), feats)

@@ -7,8 +7,10 @@ every octave.  Here it is held, bit for bit, to a composition of the
 single-octave kernel wrappers octave by octave, with the per-octave row
 rule (each octave's rows clamped at its own orientation capacity),
 followed by the same normalisation and quantisation of the rows laid end
-to end: in every descriptor mode and on the stack-kernel path, with a
-clamp that bites inside a middle octave's extremum, with a ``ks`` clamp
+to end, and the octaves' keypoints laid end to end in the one
+feature-ordered record it returns (``features.Stage2Result``): in every
+descriptor mode and on the stack-kernel path, with a clamp that bites
+inside a middle octave's extremum, with a ``ks`` clamp
 (``parallel/batch.py``), with empty octaves in the middle and at the
 end, and with the descriptors kept on the device.  The kernel tests hold
 a table launch of K5, K6 and K9 over three octaves of different sizes to
@@ -34,6 +36,7 @@ import popsift_torch  # noqa: E402
 from popsift_torch import extract as text  # noqa: E402
 from popsift_torch.config import DescMode, NormMode  # noqa: E402
 from popsift_torch.constants import build_const_info  # noqa: E402
+from popsift_torch.features import Stage2Result  # noqa: E402
 from popsift_torch.gauss import build_gauss_info  # noqa: E402
 from popsift_torch.kernels import _lib  # noqa: E402
 from popsift_torch.kernels import binwin, desc_grid  # noqa: E402
@@ -113,8 +116,8 @@ def _per_octave(plan, octaves, desc_transfer, consts, stack_kernels,
                 want_dev):
     """Stage 2 composed octave by octave from the single-octave wrappers
     and the per-octave row rule, then one normalisation and quantisation
-    of every octave's rows."""
-    raws, dicts = [], []
+    of every octave's rows, as the record of the octaves end to end."""
+    raws, keypoints, totals, clamped = [], [], [], []
     for o, stack, field, ext in octaves:
         n = ext.count
         kp = (ext.xpos, ext.ypos, ext.lpos, ext.sigma)
@@ -137,13 +140,13 @@ def _per_octave(plan, octaves, desc_transfer, consts, stack_kernels,
         raws.append(_one_octave_descriptors(
             plan, consts, stack, field,
             tuple(v[feat] for v in kp) + (oris[feat, k],), stack_kernels))
-        dicts.append(dict(x=ext.xpos.cpu().numpy(),
-                          y=ext.ypos.cpu().numpy(),
-                          sigma=ext.sigma.cpu().numpy(),
-                          num_ori=num_eff.to(torch.int32).cpu().numpy(),
-                          orientations=oris.cpu().numpy(),
-                          overflow=ext.overflow, ori_count=total,
-                          rows=rows))
+        keypoints.append(np.concatenate((np.stack(
+            [ext.xpos.cpu().numpy(), ext.ypos.cpu().numpy(),
+             ext.sigma.cpu().numpy(),
+             num_eff.to(torch.float32).cpu().numpy()], axis=1),
+            oris.cpu().numpy()), axis=1))
+        totals.append(total)
+        clamped.append(rows)
     raw = torch.cat(raws)
     if plan.norm_mode == NormMode.ROOT_SIFT:
         raw = tdesc.normalize_rootsift(raw, plan.norm_multi)
@@ -151,31 +154,38 @@ def _per_octave(plan, octaves, desc_transfer, consts, stack_kernels,
         raw = tdesc.normalize_l2(raw, plan.norm_multi)
     desc = (text.quantize_descs_dev if want_dev else text.quantize_descs)(
         raw, desc_transfer, plan.norm_multi)
-    r = 0
-    for d in dicts:
-        d["desc"] = desc[r:r + d["rows"]]
-        r += d["rows"]
-    return dicts
+    return Stage2Result(
+        keypoints=np.concatenate(keypoints),
+        octave=np.concatenate([np.full(e.count, o, np.int32)
+                               for o, _, _, e in octaves]),
+        desc=desc, overflow=tuple(e.overflow for _, _, _, e in octaves),
+        ori_count=tuple(totals), rows=tuple(clamped))
 
 
-def _assert_same(got: list, want: list, want_dev: bool) -> None:
-    assert len(got) == len(want)
-    for o, (g, w) in enumerate(zip(got, want)):
-        for k in ("x", "y", "sigma", "num_ori", "orientations"):
-            assert g[k].dtype == w[k].dtype and g[k].shape == w[k].shape, \
-                (o, k)
-            np.testing.assert_array_equal(g[k], w[k], err_msg=f"{o} {k}")
-        assert g["ori_count"] == w["ori_count"], o
-        assert g["overflow"] == w["overflow"], o
-        assert int(g["num_ori"].sum()) == w["rows"], o
-        if want_dev:
-            assert isinstance(g["desc"], torch.Tensor)
-            assert g["desc"].device == w["desc"].device
-            assert torch.equal(g["desc"], w["desc"]), o
-        else:
-            assert g["desc"].dtype == w["desc"].dtype == np.float32
-            np.testing.assert_array_equal(g["desc"], w["desc"],
-                                          err_msg=str(o))
+def _num_ori(res: Stage2Result, o: int) -> np.ndarray:
+    """The clamped ``num_ori`` of octave o's extrema."""
+    return res.num_ori[res.octave == o]
+
+
+def _assert_same(got: Stage2Result, want: Stage2Result,
+                 want_dev: bool) -> None:
+    assert isinstance(got, Stage2Result)
+    for k in ("keypoints", "octave", "num_ori", "orientations"):
+        g, w = getattr(got, k), getattr(want, k)
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        np.testing.assert_array_equal(g, w, err_msg=k)
+    assert got.ori_count == want.ori_count
+    assert got.overflow == want.overflow
+    assert got.rows == want.rows
+    for o, rows in enumerate(want.rows):
+        assert int(_num_ori(got, o).sum()) == rows, o
+    if want_dev:
+        assert isinstance(got.desc, torch.Tensor)
+        assert got.desc.device == want.desc.device
+        assert torch.equal(got.desc, want.desc)
+    else:
+        assert got.desc.dtype == want.desc.dtype == np.float32
+        np.testing.assert_array_equal(got.desc, want.desc)
 
 
 def _check(plan, octaves, cfg, consts, stack_kernels, want_dev=False):
@@ -195,7 +205,7 @@ def test_every_octave_in_one_pass(mode, device):
     with_kp = [o for o, _, _, e in octaves if e.count]
     assert len(with_kp) >= 4
     want = _check(plan, octaves, cfg, consts, stack_kernels)
-    assert sum(d["rows"] for d in want) > sum(d["x"].shape[0] for d in want)
+    assert sum(want.rows) > want.keypoints.shape[0]
 
 
 def _middle_cap(plan, octaves, stack_kernels):
@@ -223,13 +233,12 @@ def test_orientation_capacity_bites_in_a_middle_octave(mode, device):
     octaves = _stage1(device)
     plan, o = _middle_cap(plan, octaves, stack_kernels)
     want = _check(plan, octaves, cfg, consts, stack_kernels)
-    cut = want[o]
-    assert cut["rows"] == plan.ori_caps[o] < cut["ori_count"]
+    assert want.rows[o] == plan.ori_caps[o] < want.ori_count[o]
     # the cut falls inside an extremum: it keeps one of its orientations
-    num = cut["num_ori"]
+    num = _num_ori(want, o)
     assert num[-1] == 0 and 0 < num[num > 0][-1]
-    assert sum(d["rows"] for i, d in enumerate(want) if i != o) == sum(
-        d["ori_count"] for i, d in enumerate(want) if i != o)
+    assert sum(r for i, r in enumerate(want.rows) if i != o) == sum(
+        c for i, c in enumerate(want.ori_count) if i != o)
 
 
 @pytest.mark.parametrize("mode", ["loop", "grid", "stack"])
@@ -257,7 +266,7 @@ def test_empty_octaves_in_the_middle_and_at_the_end(mode, device):
         octaves[i] = (o, s, f, text._first(e, 0))
     want = _check(plan, octaves, cfg, consts, stack_kernels)
     for i in (with_kp[1], with_kp[-1]):
-        assert want[i]["x"].shape == (0,) and want[i]["desc"].shape[0] == 0
+        assert _num_ori(want, i).shape == (0,) and want.rows[i] == 0
 
 
 @pytest.mark.parametrize("mode", ["loop", "notile", "stack"])
@@ -273,9 +282,9 @@ def test_no_extrema_anywhere(device):
     for want_dev in (False, True):
         got = text.stage2_features(plan, octaves, cfg.desc_transfer,
                                    want_dev=want_dev)
-        assert [d["desc"].shape for d in got] == [(0, 128)] * len(octaves)
-        assert all(d["orientations"].shape == (0, 4) and d["ori_count"] == 0
-                   for d in got)
+        assert tuple(got.desc.shape) == (0, 128)
+        assert got.orientations.shape == (0, 4) and got.octave.shape == (0,)
+        assert got.ori_count == got.rows == (0,) * len(octaves)
 
 
 def test_extract_octaves_ks_matches_the_clamped_pass(device):

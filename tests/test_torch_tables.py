@@ -120,8 +120,8 @@ def test_get_can_filter_extrema_matches():
 
 def test_siftjob_img_matches(monkeypatch):
     """set_img/get_img as the JAX SiftJob has them, and what the worker
-    sets: the image as uploaded to the pipeline's device (bytes as they
-    are, floats normalised), None before the upload and after a failed
+    sets: the image as staged onto the pipeline's device (bytes as they
+    are, floats normalised), None before the staging and after a failed
     one."""
     from popsift_tpu import pipeline as jpipe
     from popsift_torch import pipeline as tpipe
@@ -148,11 +148,11 @@ def test_siftjob_img_matches(monkeypatch):
                                       text.normalize_input(img))
 
     def fail(*_):
-        raise RuntimeError("upload failed")
-    monkeypatch.setattr(tpipe, "upload_image", fail)
+        raise RuntimeError("staging failed")
+    monkeypatch.setattr(tpipe.StageIn, "stage", fail)
     with popsift_torch.PopSift(popsift_torch.Config(), device="cpu") as ps:
         job = ps.enqueue(64, 48, img)
-        with pytest.raises(RuntimeError, match="upload failed"):
+        with pytest.raises(RuntimeError, match="staging failed"):
             job.get()
         assert job.get_img() is None
 

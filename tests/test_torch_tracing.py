@@ -243,7 +243,8 @@ def recorder():
 
 
 # each span's parent in an extraction (stage names without their octave)
-_PARENT = {"queue": "job", "upload": "job", "extract": "job",
+_PARENT = {"stage_in": "job", "queue": "job", "upload": "job",
+           "extract": "job",
            "stage1": "extract", "filter": "extract", "stage2": "extract",
            "assemble": "extract", "pyramid": "stage1", "detect": "stage1",
            "orientation": "stage2", "descriptors": "stage2",
@@ -284,8 +285,9 @@ def test_pipeline_spans_carry_request_and_parent(recorder):
             assert parent.request == r
             assert _kind(parent.name) == _PARENT[_kind(s.name)], s
             assert parent.start <= s.start <= s.end <= parent.end, s
-        # the worker opened all but the two spans opened at enqueue
-        threads = {s.thread for s in mine if s.name not in ("job", "queue")}
+        # the worker opened all but the three spans opened at enqueue
+        threads = {s.thread for s in mine
+                   if s.name not in ("job", "stage_in", "queue")}
         assert len(threads) == 1
         assert threads != {roots[0].thread}
     assert {s.request for s in spans} == set(requests)
@@ -364,10 +366,12 @@ def test_trace_appends_host_spans_on_the_profilers_clock(tmp_path):
     hosts = [e for e in events if e.get("cat") == "host_span"]
     assert all({"request", "id", "parent"} <= set(e["args"])
                for e in hosts)
-    # job and queue cross threads: async pairs; the rest complete events
+    # job, stage_in and queue are detached spans: async pairs; the rest
+    # complete events
     pairs = collections.Counter((e["name"], e["ph"]) for e in hosts
                                 if e["ph"] in "be")
-    assert pairs == {("job", "b"): 1, ("job", "e"): 1, ("queue", "b"): 1,
+    assert pairs == {("job", "b"): 1, ("job", "e"): 1, ("stage_in", "b"): 1,
+                     ("stage_in", "e"): 1, ("queue", "b"): 1,
                      ("queue", "e"): 1}
     # the profiler's pyramid ranges and the host spans, paired in order on
     # each thread (the caller's and the worker's)

@@ -19,9 +19,10 @@ photographs have.  For each slot size in MB, in turns (2, 4, 8, then 8,
   two warm ones.
 
 Once a turn, beside them, the copy and upload the ring replaced: a host
-copy into a reused buffer, then ``pipeline.upload_image`` (a pageable
-copy), as the median of 10.  The card's name and power limit head the
-output; the last line is the JSON of every reading.
+copy into a reused buffer, then its pageable upload
+(``torch.from_numpy(...).to(card)``), as the median of 10.  The card's
+name and power limit head the output; the last line is the JSON of every
+reading.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
     import popsift_torch as pt
     from popsift_torch import pipeline
+    from popsift_torch.extract import normalize_input
     from benchmark.inputs.photo_float import make_canvas
     from benchmark.run import make_config
 
@@ -85,7 +87,7 @@ def main() -> int:
 
     def pageable():
         np.copyto(buf, photos[0])
-        pipeline.upload_image(buf, dev)
+        torch.from_numpy(normalize_input(buf)).to(dev)
         torch.cuda.synchronize(dev)
 
     for turn in range(args.turns):
